@@ -1,0 +1,16 @@
+"""Host data helpers of the port (this slice: normalization statistics
+and joint counts)."""
+
+from hourglass_pose_estimation_torch.data.meanstd import MEANSTD, get_meanstd
+
+# joints per dataset (the JAX package's dataset classes' n_joints)
+N_JOINTS = {'mpii': 16, 'mscoco': 17, 'crowdpose': 14, 'hands': 22,
+            'synthetic': 16}
+
+
+def resolve_num_classes(cfg) -> int:
+    """Explicit MODEL.num_classes, else len(MODEL.subset), else the
+    dataset's joint count (as the JAX package resolves it)."""
+    mc = cfg.model
+    return (mc.num_classes or (len(mc.subset) if mc.subset else 0)
+            or N_JOINTS[cfg.dataset.name])

@@ -1,0 +1,113 @@
+"""Stacked-hourglass network (Newell et al., ECCV 2016), eval forward.
+
+Port of `hourglass_pose_estimation_tpu/models/hourglass.py::HourglassNet`
+and its `hg` factory. Same structure and parameter counts (1/2/8 stacks =
+3.59M/6.73M/25.59M full, 1.21M/2.31M/8.88M mobile), same submodule names
+as the flax paths (`conv1`, `bn1`, `layer1..3`, `hg{i}`, `res{i}`,
+`fc{i}`, `fc_bn{i}`, `score{i}`, `fc_back{i}`, `score_back{i}`):
+
+  stem:  conv7x7/2 (3->64) + BN + ReLU -> bottleneck(64->128)
+         -> maxpool/2 -> bottleneck(128->256) -> bottleneck(256->2F)
+  stack: hourglass(depth 4, 2F ch) -> bottleneck chain -> 1x1 conv +
+         BN + ReLU ("fc") -> 1x1 score head (J maps);
+         inter-stack fusion x <- x + fc_back(y) + score_back(score).
+
+Input [B, H, W, 3] (NHWC, any float dtype); output the stacked per-stack
+heatmaps [S, B, H/4, W/4, J] in `out_dtype` (f32).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hourglass_pose_estimation_torch._device import resolve_device
+from hourglass_pose_estimation_torch.models.modules import (
+    Bottleneck, Conv, Hourglass, ResidualChain)
+from hourglass_pose_estimation_torch.models.norm import BatchNorm
+
+
+class HourglassNet(nn.Module):
+    def __init__(self, num_stacks: int = 2, num_blocks: int = 1,
+                 num_classes: int = 16, mobile: bool = False,
+                 skip_mode: str = 'sum', num_feats: int = 128,
+                 dtype=torch.bfloat16, out_dtype=torch.float32,
+                 fuse_upsample: bool = False, fuse_block: bool = False):
+        super().__init__()
+        self.num_stacks = num_stacks
+        self.compute_dtype, self.out_dtype = dtype, out_dtype
+        ch = num_feats * 2
+        bneck = lambda in_ch, planes: Bottleneck(
+            in_ch, planes, mobile=mobile, dtype=dtype, fuse_block=fuse_block)
+        conv1x1 = lambda i, o: Conv(i, o, 1, dtype=dtype)
+        self.conv1 = Conv(3, 64, 7, stride=2, dtype=dtype)
+        self.bn1 = BatchNorm(64)
+        self.layer1 = bneck(64, 64)
+        self.layer2 = bneck(128, 128)
+        self.layer3 = bneck(256, num_feats)
+        for i in range(num_stacks):
+            self.add_module(f'hg{i}', Hourglass(
+                num_feats, depth=4, num_blocks=num_blocks, mobile=mobile,
+                skip_mode=skip_mode, dtype=dtype,
+                fuse_upsample=fuse_upsample, fuse_block=fuse_block))
+            self.add_module(f'res{i}', ResidualChain(
+                num_feats, num_blocks, mobile, dtype, fuse_block=fuse_block))
+            self.add_module(f'fc{i}', conv1x1(ch, ch))
+            self.add_module(f'fc_bn{i}', BatchNorm(ch))
+            self.add_module(f'score{i}', conv1x1(ch, num_classes))
+            if i < num_stacks - 1:
+                self.add_module(f'fc_back{i}', conv1x1(ch, ch))
+                self.add_module(f'score_back{i}', conv1x1(num_classes, ch))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x: [B, H, W, 3] -> [S, B, H/4, W/4, num_classes]."""
+        dt = self.compute_dtype
+        x = x.permute(0, 3, 1, 2).to(dt)
+        x = torch.relu(self.bn1(self.conv1(x), train)).to(dt)
+        x = self.layer1(x, train)
+        x = F.max_pool2d(x, 2, 2)
+        x = self.layer2(x, train)
+        x = self.layer3(x, train)
+        outs = []
+        for i in range(self.num_stacks):
+            m = lambda name: getattr(self, f'{name}{i}')
+            y = m('res')(m('hg')(x, train), train)
+            y = torch.relu(m('fc_bn')(m('fc')(y), train)).to(dt)
+            score = m('score')(y)
+            outs.append(score.to(self.out_dtype).permute(0, 2, 3, 1))
+            if i < self.num_stacks - 1:
+                x = x + m('fc_back')(y) + m('score_back')(score)
+        return torch.stack(outs, 0)
+
+
+def hg(device='cuda', **kwargs) -> HourglassNet:
+    """Factory with the JAX package's kwarg surface (`hg(**kwargs)`),
+    built on `device` in channels-last memory format. Accepts and ignores
+    `out_res` like the reference factory; the training-only options
+    (`remat`, `bn_stat_samples`, `bn_axis_name`) must stay at their
+    defaults until the training slice."""
+    if kwargs.get('up_channel_num', 256) != 256:
+        raise ValueError('arch=hg does not support up_channel_num '
+                         '(MSPN decoder width); got '
+                         f"{kwargs['up_channel_num']!r}")
+    for key, default in (('remat', False), ('bn_stat_samples', 0),
+                         ('bn_axis_name', None)):
+        if kwargs.get(key, default) != default:
+            raise NotImplementedError(f'hg({key}=...) is a training option; '
+                                      'it comes with the training slice')
+    dev = resolve_device(device)
+    model = HourglassNet(
+        num_stacks=kwargs['num_stacks'],
+        num_blocks=kwargs.get('num_blocks', 1),
+        num_classes=kwargs['num_classes'],
+        mobile=kwargs.get('mobile', False),
+        skip_mode=kwargs.get('skip_mode', 'sum'),
+        num_feats=kwargs.get('num_feats', 128),
+        dtype=kwargs.get('dtype', torch.bfloat16),
+        fuse_upsample=kwargs.get('fuse_upsample', False),
+        fuse_block=kwargs.get('fuse_block', False))
+    return model.to(dev, memory_format=torch.channels_last).eval()
+
+
+hg.n_outputs = 'num_stacks'

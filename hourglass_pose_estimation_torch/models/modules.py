@@ -1,0 +1,177 @@
+"""Building blocks: pre-activation bottleneck and the hourglass module.
+
+Port of `hourglass_pose_estimation_tpu/models/modules.py` (eval forward).
+Tensors are NCHW-shaped in `torch.channels_last` memory format, so the
+physical layout is NHWC: the Hopper kernels read it as it is (through a
+permuted view) and cuDNN's channels-last convolutions use it too.
+Parameters are f32; convolutions compute in `dtype` (bf16 by default);
+BatchNorm math and output are f32. Submodules are named after the flax
+paths (`up1_l4.block0.bn1`, ...), which is what `weights.py` relies on.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hourglass_pose_estimation_torch.models.norm import BatchNorm
+from hourglass_pose_estimation_torch.ops.hopper import (
+    BottleneckParams, fused_bottleneck, params_from_variables, upsample2x_add)
+from hourglass_pose_estimation_torch.ops.hopper.upsample import (
+    upsample2x_nearest as _upsample2x_nhwc)
+
+EXPANSION = 2
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x spatial upsample of an NCHW tensor (the result
+    is channels-last)."""
+    return _upsample2x_nhwc(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class Conv(nn.Conv2d):
+    """`flax.linen.Conv` as the JAX models use it: f32 parameters, the
+    product computed in `dtype`, 'same' padding k // 2, bias."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1,
+                 groups: int = 1, dtype=torch.bfloat16):
+        super().__init__(in_ch, out_ch, k, stride=stride, padding=k // 2,
+                         groups=groups, bias=True)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                        self.stride, self.padding, 1, self.groups)
+
+
+class Bottleneck(nn.Module):
+    """Pre-activation residual bottleneck, expansion 2.
+
+    `mobile=True` makes the 3x3 depthwise. A 1x1-conv shortcut
+    (`downsample`) is added iff stride != 1 or in_ch != 2*planes.
+    `fuse_block` runs an eval forward of an identity-residual, stride-1,
+    non-mobile block of at least `fuse_min_hw` pixels a side as the fused
+    bottleneck kernel (ops/hopper/bottleneck.py); every other block takes
+    the standard path, with the JAX package's gating."""
+
+    def __init__(self, in_ch: int, planes: int, stride: int = 1,
+                 mobile: bool = False, dtype=torch.bfloat16,
+                 fuse_block: bool = False, fuse_min_hw: int = 16):
+        super().__init__()
+        c_out = planes * EXPANSION
+        self.planes, self.stride, self.mobile = planes, stride, mobile
+        self.compute_dtype = dtype
+        self.fuse_block, self.fuse_min_hw = fuse_block, fuse_min_hw
+        self.bn1 = BatchNorm(in_ch)
+        self.conv1 = Conv(in_ch, planes, 1, dtype=dtype)
+        self.bn2 = BatchNorm(planes)
+        self.conv2 = Conv(planes, planes, 3, stride,
+                          groups=planes if mobile else 1, dtype=dtype)
+        self.bn3 = BatchNorm(planes)
+        self.conv3 = Conv(planes, c_out, 1, dtype=dtype)
+        self.downsample = (Conv(in_ch, c_out, 1, stride, dtype=dtype)
+                           if stride != 1 or in_ch != c_out else None)
+        self._fused = None
+
+    def fused_params(self) -> BottleneckParams:
+        """This block's folded parameters for the fused kernel (through the
+        JAX-layout `params_from_variables`: conv weights OIHW -> HWIO views)."""
+        bn = lambda m: {'scale': m.weight, 'bias': m.bias}
+        conv = lambda m: {'kernel': m.weight.permute(2, 3, 1, 0), 'bias': m.bias}
+        stats = lambda m: {'mean': m.running_mean, 'var': m.running_var}
+        names = ('bn1', 'bn2', 'bn3', 'conv1', 'conv2', 'conv3')
+        with torch.no_grad():
+            return params_from_variables(
+                {'params': {n: (bn if n.startswith('bn') else conv)(getattr(self, n))
+                            for n in names},
+                 'batch_stats': {n: stats(getattr(self, n)) for n in names[:3]}},
+                eps=self.bn1.eps, dtype=self.compute_dtype)
+
+    def freeze(self):
+        """Fold this block's kernel parameters once (an inference function
+        calls this when it is built); later weight edits need another
+        freeze()."""
+        self._fused = self.fused_params()
+
+    def _fuses(self, x: torch.Tensor, train: bool) -> bool:
+        return (self.fuse_block and not train and self.stride == 1
+                and x.shape[1] == self.planes * EXPANSION and not self.mobile
+                and min(x.shape[2], x.shape[3]) >= self.fuse_min_hw)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self._fuses(x, train):
+            prm = self._fused if self._fused is not None else self.fused_params()
+            y = fused_bottleneck(x.to(self.compute_dtype).permute(0, 2, 3, 1), prm)
+            return y.permute(0, 3, 1, 2)
+        out = self.conv1(torch.relu(self.bn1(x, train)))
+        out = self.conv2(torch.relu(self.bn2(out, train)))
+        out = self.conv3(torch.relu(self.bn3(out, train)))
+        residual = x if self.downsample is None else self.downsample(x)
+        return out + residual.to(out.dtype)
+
+
+class ResidualChain(nn.Module):
+    """`num_blocks` bottlenecks on 2*planes channels (`block0`, ...)."""
+
+    def __init__(self, planes: int, num_blocks: int = 1, mobile: bool = False,
+                 dtype=torch.bfloat16, fuse_block: bool = False):
+        super().__init__()
+        self.num_blocks = num_blocks
+        for i in range(num_blocks):
+            self.add_module(f'block{i}', Bottleneck(
+                planes * EXPANSION, planes, mobile=mobile, dtype=dtype,
+                fuse_block=fuse_block))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        for i in range(self.num_blocks):
+            x = getattr(self, f'block{i}')(x, train)
+        return x
+
+
+class Hourglass(nn.Module):
+    """Depth-`depth` encoder-decoder at constant width 2*planes, written
+    as an encoder loop, a bottom chain and a decoder loop. Merges are
+    `sum` (optionally through the fused upsample+add kernel) or `concat`
+    with one shared grouped 1x1 conv, as in the JAX package."""
+
+    def __init__(self, planes: int, depth: int = 4, num_blocks: int = 1,
+                 mobile: bool = False, skip_mode: str = 'sum',
+                 dtype=torch.bfloat16, fuse_upsample: bool = False,
+                 fuse_block: bool = False):
+        super().__init__()
+        if skip_mode not in ('sum', 'concat'):
+            raise ValueError(f"skip_mode must be 'sum' or 'concat', got {skip_mode!r}")
+        self.depth, self.skip_mode = depth, skip_mode
+        self.fuse_upsample = fuse_upsample
+        chain = lambda: ResidualChain(planes, num_blocks, mobile, dtype,
+                                      fuse_block=fuse_block)
+        for n in range(depth, 0, -1):
+            self.add_module(f'up1_l{n}', chain())
+            self.add_module(f'low1_l{n}', chain())
+        self.low2_l1 = chain()
+        for n in range(1, depth + 1):
+            self.add_module(f'low3_l{n}', chain())
+        self.concat_conv = (Conv(planes * EXPANSION * 2, planes * EXPANSION, 1,
+                                 groups=2, dtype=dtype)
+                            if skip_mode == 'concat' else None)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        skips = []
+        for n in range(self.depth, 0, -1):
+            skips.append(getattr(self, f'up1_l{n}')(x, train))
+            x = F.max_pool2d(x, 2, 2)
+            x = getattr(self, f'low1_l{n}')(x, train)
+        x = self.low2_l1(x, train)
+        for n in range(1, self.depth + 1):
+            x = getattr(self, f'low3_l{n}')(x, train)
+            up1 = skips.pop()
+            if self.skip_mode == 'concat':
+                x = self.concat_conv(torch.cat([up1, upsample2x_nearest(x)], 1))
+            elif self.fuse_upsample:
+                x = upsample2x_add(x.permute(0, 2, 3, 1),
+                                   up1.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            else:
+                x = up1 + upsample2x_nearest(x)
+        return x

@@ -1,0 +1,146 @@
+"""Build and load the Hopper kernels of `csrc/*.cu`.
+
+Each source is compiled by its own `nvcc` (all started together) for
+`sm_90a` into an object with a plain C interface; the objects are linked
+into one shared library that `ctypes` loads. Nothing here touches CUDA
+until `library()` is first called, so every module imports on a machine
+without a GPU or a CUDA toolkit.
+
+The library lands in `ops/hopper/build/` (ignored by git), named by a
+hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+PKG_ROOT = Path(__file__).resolve().parents[2]
+CSRC = PKG_ROOT / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parent / 'build'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argument types (every one returns cudaError_t as int)
+SIGNATURES = {
+    'hpe_bottleneck_fwd': [_P] * 14 + [_I] * 6 + [_P],
+    'hpe_bottleneck_smem_bytes': [_I, _I],
+    'hpe_upsample2x_add': [_P, _P, _P] + [_I] * 6 + [_P],
+    'hpe_decode_peaks': [_P, _P, _P] + [_I] * 4 + [_P],
+}
+
+_lock = threading.Lock()
+_loaded = {}
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which('nvcc')
+    if nvcc is None:
+        home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+        cand = os.path.join(home, 'bin', 'nvcc')
+        nvcc = cand if os.path.isfile(cand) else None
+    if nvcc is None:
+        raise RuntimeError('nvcc not found (PATH, $CUDA_HOME/bin, '
+                           '/usr/local/cuda/bin): the Hopper kernels are '
+                           'built from csrc/*.cu at first CUDA use')
+    return nvcc
+
+
+def _sources():
+    srcs = sorted(CSRC.glob('*.cu'))
+    if not srcs:
+        raise RuntimeError(f'no CUDA sources under {CSRC}')
+    return srcs
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple:
+    """Compile (if needed) -> (path of the .so, compiler log)."""
+    srcs = _sources()
+    so = BUILD_DIR / f'libhpe_kernels_{_digest(srcs)}.so'
+    log_path = so.with_suffix('.log')
+    if so.exists():
+        return so, log_path.read_text() if log_path.exists() else ''
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for s in srcs:
+            obj = os.path.join(tmp, s.stem + '.o')
+            cmd = [nvcc, *NVCC_FLAGS, '-c', str(s), '-o', obj]
+            procs.append((s, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for s, _, p in procs:
+            out, _ = p.communicate()
+            log.append(f'== {s.name}\n{out}')
+            if p.returncode != 0:
+                failed.append(s.name)
+        if failed:
+            raise RuntimeError(f'nvcc failed on {failed}:\n' + '\n'.join(log))
+        tmp_so = os.path.join(tmp, so.name)
+        link = subprocess.run(
+            [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a', '-shared',
+             '-o', tmp_so] + [obj for _, obj, _ in procs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f'nvcc link failed:\n{link.stdout}')
+        text = '\n'.join(log)
+        log_path.write_text(text)
+        os.replace(tmp_so, so)
+    return so, text
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    with _lock:
+        lib = _loaded.get('lib')
+        if lib is None:
+            path, log = build()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.build_log = log
+            _loaded['lib'] = lib
+        return lib
+
+
+def stream_for(t) -> int:
+    """Handle of the current stream of t's device, which must be the
+    current device (the kernels launch there)."""
+    import torch
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f'tensor on {t.device}, current device is '
+                         f'cuda:{torch.cuda.current_device()}')
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def num_sms(t) -> int:
+    """Streaming multiprocessors of t's device."""
+    import torch
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f'{what}: CUDA error {err} at launch')

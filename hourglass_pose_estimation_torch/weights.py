@@ -1,0 +1,68 @@
+"""Carry JAX-package weights into the port.
+
+The port's submodules are named after the flax module paths, so a JAX
+`{'params', 'batch_stats'}` tree maps onto the port's `state_dict` by a
+walk: the path joins with '.', and the leaf renames as
+
+  params      kernel [kh, kw, I/groups, O] -> weight [O, I/groups, kh, kw]
+              (transpose(3, 2, 0, 1), right for grouped and depthwise
+              convs too: both frameworks split channels contiguously)
+              bias -> bias, scale -> weight (BatchNorm)
+  batch_stats mean -> running_mean, var -> running_var
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_LEAVES = {
+    ('params', 'kernel'): 'weight',
+    ('params', 'bias'): 'bias',
+    ('params', 'scale'): 'weight',
+    ('batch_stats', 'mean'): 'running_mean',
+    ('batch_stats', 'var'): 'running_var',
+}
+
+
+def _walk(node, path=()):
+    for key, val in node.items():
+        if isinstance(val, Mapping):
+            yield from _walk(val, path + (str(key),))
+        else:
+            yield path, str(key), val
+
+
+def load_jax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
+    """Fill `model` in place from a JAX `{'params', 'batch_stats'}` tree
+    (nested dicts of numpy arrays). Strict: any leaf without a port
+    counterpart, any port tensor left unfilled and any shape mismatch
+    raises KeyError listing them all. Returns the model."""
+    target = model.state_dict()
+    filled, problems = set(), []
+    for coll in ('params', 'batch_stats'):
+        for path, leaf, val in _walk(variables.get(coll, {})):
+            where = '/'.join((coll,) + path + (leaf,))
+            name = _LEAVES.get((coll, leaf))
+            key = '.'.join(path + (name,)) if name else None
+            if key not in target:
+                problems.append(f'unexpected {where}')
+                continue
+            arr = np.asarray(val, dtype=np.float32)
+            if leaf == 'kernel':
+                arr = arr.transpose(3, 2, 0, 1)
+            if tuple(arr.shape) != tuple(target[key].shape):
+                problems.append(f'shape mismatch {where} {arr.shape} vs '
+                                f'{key} {tuple(target[key].shape)}')
+                continue
+            with torch.no_grad():
+                target[key].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            filled.add(key)
+    problems += [f'missing {key}' for key in target if key not in filled]
+    if problems:
+        raise KeyError(f'JAX variables do not match the model '
+                       f'({len(problems)} problems):\n  '
+                       + '\n  '.join(problems[:40]))
+    return model

@@ -1,0 +1,178 @@
+"""Port model and serving function vs the JAX package, on the CPU in f32.
+
+The port's HourglassNet is filled from a flax HourglassNet's variables
+through `weights.load_jax_variables` and must compute the same heatmaps
+(rtol 1e-3, atol 1e-4, as tests/test_torch_import.py holds the JAX model
+to the reference), with the fused switches off and on. The whole
+serving function (uint8 frames -> keypoints) is held to the JAX
+`make_inference_fn` with the same arguments."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from hourglass_pose_estimation_tpu.export import (
+    make_inference_fn as jax_make_inference_fn)
+from hourglass_pose_estimation_tpu.models import HourglassNet as JaxNet
+
+from hourglass_pose_estimation_torch.export import (
+    fold_batchnorm, make_inference_fn)
+from hourglass_pose_estimation_torch.models import HourglassNet, get_model
+from hourglass_pose_estimation_torch.models.modules import Bottleneck
+from hourglass_pose_estimation_torch.weights import load_jax_variables
+
+torch.set_num_threads(1)
+
+MPII_MEANSTD = ((0.406822, 0.444257, 0.466048), (0.228944, 0.232618, 0.236498))
+
+
+def _randomize(tree, rng):
+    """Non-trivial BN affine and running statistics (kernels keep their
+    init), so every leaf of the carried-over tree carries signal."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _randomize(v, rng)
+            continue
+        v = np.asarray(v, np.float32)
+        if k == 'var':
+            v = rng.uniform(0.5, 1.5, v.shape)
+        elif k in ('mean', 'bias'):
+            v = rng.normal(0, 0.1, v.shape)
+        elif k == 'scale':
+            v = 1 + rng.normal(0, 0.1, v.shape)
+        out[k] = np.asarray(v, np.float32)
+    return out
+
+
+def _jax_model(seed, **kw):
+    model = JaxNet(dtype=jnp.float32, **kw)
+    v = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, 64, 64, 3)),
+                   train=False)
+    return model, _randomize(jax.tree.map(np.asarray, dict(v)),
+                             np.random.RandomState(seed))
+
+
+@pytest.mark.parametrize('stacks,mobile,skip_mode', [
+    (1, False, 'sum'), (2, False, 'sum'), (1, False, 'concat'),
+    (1, True, 'sum')])
+def test_hourglassnet_eval_matches_flax(rng, stacks, mobile, skip_mode):
+    kw = dict(num_stacks=stacks, num_blocks=1, num_classes=4, mobile=mobile,
+              skip_mode=skip_mode, num_feats=16)
+    jmodel, variables = _jax_model(stacks + 10 * mobile, **kw)
+    x = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
+    ref = np.asarray(jmodel.apply(variables, jnp.asarray(x), train=False))
+    # JAX's fuse_upsample calls Pallas outside interpret mode and cannot
+    # run on the CPU; the port's fused merge is held to the unfused JAX
+    # forward, which is the same math
+    for fuse in (False, True):
+        model = HourglassNet(dtype=torch.float32, fuse_block=fuse,
+                             fuse_upsample=fuse and skip_mode == 'sum', **kw)
+        load_jax_variables(model, variables)
+        with torch.no_grad():
+            got = model(torch.from_numpy(x)).numpy()
+        assert got.shape == ref.shape == (stacks, 2, 16, 16, 4)
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-4,
+                                   err_msg=f'fuse={fuse}')
+
+
+def test_fuse_block_gating_matches_jax():
+    """Which blocks take the fused kernel: the JAX gating exactly
+    (identity residual, stride 1, non-mobile, >= fuse_min_hw a side,
+    eval only)."""
+    x16 = torch.zeros(1, 32, 16, 16)
+    assert Bottleneck(32, 16, fuse_block=True)._fuses(x16, train=False)
+    assert not Bottleneck(32, 16, fuse_block=True)._fuses(x16, train=True)
+    assert not Bottleneck(32, 16)._fuses(x16, train=False)
+    assert not Bottleneck(32, 8, fuse_block=True)._fuses(x16, False)
+    assert not Bottleneck(32, 16, stride=2, fuse_block=True)._fuses(x16, False)
+    assert not Bottleneck(32, 16, mobile=True, fuse_block=True)._fuses(x16, False)
+    assert not Bottleneck(32, 16, fuse_block=True)._fuses(
+        torch.zeros(1, 32, 8, 16), False)
+
+
+def test_train_mode_raises_until_the_training_slice():
+    from hourglass_pose_estimation_torch.models.norm import BatchNorm
+    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+        BatchNorm(4)(torch.zeros(1, 4, 2, 2), train=True)
+    model = HourglassNet(num_stacks=1, num_classes=4, num_feats=16)
+    with pytest.raises(NotImplementedError, match='training slice'):
+        model(torch.zeros(1, 64, 64, 3), train=True)
+    with pytest.raises(NotImplementedError, match='mspn'):
+        get_model('mspn', device='cpu', num_stacks=1, num_classes=4)
+
+
+def test_load_jax_variables_is_strict():
+    _, variables = _jax_model(0, num_stacks=1, num_classes=4, num_feats=16)
+    two = HourglassNet(num_stacks=2, num_classes=4, num_feats=16)
+    with pytest.raises(KeyError, match='missing'):
+        load_jax_variables(two, variables)
+    extra = {'params': {**variables['params'],
+                        'bogus': {'kernel': np.zeros((1, 1, 2, 2))}},
+             'batch_stats': variables['batch_stats']}
+    with pytest.raises(KeyError, match='unexpected params/bogus/kernel'):
+        load_jax_variables(HourglassNet(num_stacks=1, num_classes=4,
+                                        num_feats=16), extra)
+
+
+def test_fold_batchnorm_keeps_the_forward(rng):
+    _, variables = _jax_model(3, num_stacks=1, num_classes=4, num_feats=16)
+    model = HourglassNet(num_stacks=1, num_classes=4, num_feats=16,
+                         dtype=torch.float32)
+    load_jax_variables(model, variables)
+    x = torch.from_numpy(rng.normal(size=(1, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        ref = model(x)
+        got = fold_batchnorm(model)(x)
+    assert float(model.bn1.running_mean.abs().max()) == 0.0
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize('weights_dtype', [None, 'bf16'])
+def test_inference_fn_matches_jax(weights_dtype):
+    """uint8 frames of another size (80x96) -> /255 -> resize to 64 ->
+    normalize -> 2-stack net -> quarter decode -> input-frame pixels."""
+    kw = dict(num_stacks=2, num_blocks=1, num_classes=16, num_feats=16)
+    jmodel, variables = _jax_model(5, **kw)
+    frames = np.random.RandomState(7).randint(
+        0, 256, size=(3, 80, 96, 3)).astype(np.uint8)
+    jfn = jax_make_inference_fn(
+        jmodel, variables, decode='quarter', fold_bn=True,
+        weights_dtype=jnp.bfloat16 if weights_dtype else None,
+        preprocess=MPII_MEANSTD, input_res=64)
+    jk, jm = (np.asarray(a) for a in jfn(jnp.asarray(frames)))
+
+    model = HourglassNet(dtype=torch.float32, fuse_block=True,
+                         fuse_upsample=True, **kw)
+    fn = make_inference_fn(
+        model, variables, decode='quarter', fold_bn=True,
+        weights_dtype=torch.bfloat16 if weights_dtype else None,
+        preprocess=MPII_MEANSTD, input_res=64, device='cpu')
+    tk, tm = fn(frames)
+    assert tk.shape == jk.shape == (3, 16, 2)
+    assert tm.shape == jm.shape == (3, 16)
+    np.testing.assert_allclose(tk.numpy(), jk, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(tm.numpy(), jm, rtol=1e-5, atol=1e-5)
+
+    hfn = make_inference_fn(model, variables, fold_bn=True, device='cpu',
+                            preprocess=MPII_MEANSTD, input_res=64)
+    jh = jax_make_inference_fn(jmodel, variables, fold_bn=True,
+                               preprocess=MPII_MEANSTD, input_res=64)
+    np.testing.assert_allclose(hfn(frames).numpy(),
+                               np.asarray(jh(jnp.asarray(frames))),
+                               rtol=1e-3, atol=1e-4)
+
+
+def test_inference_fn_takes_port_state_dict(rng):
+    model = get_model('hg', device='cpu', num_stacks=1, num_classes=4,
+                      num_feats=16, dtype=torch.float32)
+    x = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
+    fn = make_inference_fn(model, model.state_dict(), device='cpu')
+    with torch.no_grad():
+        ref = model(torch.from_numpy(x))[-1]
+    np.testing.assert_allclose(fn(x).numpy(), ref.numpy(), rtol=1e-6,
+                               atol=1e-6)
