@@ -12,9 +12,11 @@ failure):
      version on the card, with the tolerance stated, and timed (CUDA
      events) beside its plain version and its bound;
   4. the serving path: the flagship 8-stack hourglass of
-     configs/train_mpii_8stack.yaml with seeded weights, folded into a
-     frames -> keypoints function (fused bottleneck, fused upsample+add,
-     peak decode) behind MicroBatcher(batch 64) and the HTTP server on
+     configs/train_mpii_8stack.yaml with seeded weights, built by
+     serve_http.build_inference into a frames -> keypoints function
+     (MODEL.fuse_block at its default, on: fused bottleneck, fused
+     upsample+add, peak decode) behind MicroBatcher(batch 64) and the
+     HTTP server on
      127.0.0.1, answering 256 POSTed uint8 256x256 frames from 4 client
      processes of 16 connections each; every reply is checked;
   5. the kernels' launch counts in that run: 65 bottleneck, 32 upsample
@@ -59,13 +61,18 @@ PEAK_BYTES = 3.35e12
 # same inputs. The bottleneck's plain version rounds at the same points
 # (t1, t2, t3, h3 to bf16) and differs only in f32 summation order and
 # the bf16 roundings that order flips; upsample and decode are exact.
+# The bottleneck is held on its residual branch, out - x (what the kernel
+# computes; read at ~5e-4 on an H100), and on the whole output.
 TOL_BOTTLENECK = 1e-2
 # kernel path vs the path with the kernels off (both bf16 on the card):
 # the unfused blocks round each conv output to bf16 where the kernel
-# keeps f32, so the two differ by bf16 noise through 8 stacks
-TOL_SWITCHES = 5e-2
-# bf16 card path vs the f32 plain path on the CPU (two frames)
-TOL_F32_REFERENCE = 1e-1
+# keeps f32, so the two differ by bf16 noise through 8 stacks (read at
+# 7.6e-3 on an H100)
+TOL_SWITCHES = 3e-2
+# bf16 card path vs the f32 plain path on the CPU, two frames (read at
+# 7.3e-3 on an H100). Keypoints are not compared: random weights give
+# flat, near-tied heatmaps whose argmax flips under bf16 noise.
+TOL_F32_REFERENCE = 3e-2
 
 
 def fail(msg: str) -> None:
@@ -144,6 +151,8 @@ def kernel_phases(seed: int):
         branch = rel_l2(got.float() - x.float(), ref.float() - x.float())
         check(bool(torch.isfinite(got.float()).all()), f'bottleneck {hw}^2 not finite')
         check(err <= TOL_BOTTLENECK, f'bottleneck {hw}^2 rel L2 {err:.3e} > {TOL_BOTTLENECK}')
+        check(branch <= TOL_BOTTLENECK,
+              f'bottleneck {hw}^2 branch rel L2 {branch:.3e} > {TOL_BOTTLENECK}')
         npix = BATCH * hw * hw
         flops = 2.0 * npix * (256 * 128 * 2 + 9 * 128 * 128)
         nbytes = 2.0 * npix * 256 * 2 + 2 * (256 * 128 * 2 + 9 * 128 * 128) + 4 * (3 * 256 + 6 * 128)
@@ -294,6 +303,7 @@ def main(argv=None) -> int:
     from hourglass_pose_estimation_torch.export import make_inference_fn
     from hourglass_pose_estimation_torch.models import HourglassNet, get_model
     from hourglass_pose_estimation_torch.ops.hopper import KERNEL_WRAPPERS, _build
+    from hourglass_pose_estimation_torch.serve_http import build_inference
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -318,19 +328,27 @@ def main(argv=None) -> int:
     # 3. kernels vs plain
     rows = kernel_phases(args.seed)
 
-    # 4. the serving path at full width
-    cfg = load_config(str(REPO / 'configs' / 'train_mpii_8stack.yaml'))
+    # 4. the serving path at full width, built as serve_http builds it
+    # from the config (MODEL.fuse_block at its default) and the weights
+    cfg = load_config(str(REPO / 'configs' / 'train_mpii_8stack.yaml'), overrides=[
+        'EVAL.export_keypoints=true', 'EVAL.export_preprocess=true',
+        f'EVAL.export_batch={BATCH}', 'EVAL.export_bf16_weights=true'])
     torch.manual_seed(args.seed)
     model_kw = dict(num_stacks=cfg.model.num_stacks, num_blocks=cfg.model.num_blocks,
                     num_classes=resolve_num_classes(cfg), mobile=cfg.model.mobile,
                     skip_mode=cfg.model.skip_mode)
-    model = get_model('hg', device='cpu', fuse_block=True, fuse_upsample=True, **model_kw)
+    model = get_model('hg', device='cpu', **model_kw)     # the kernels off
     randomize_bn_(model, torch.Generator().manual_seed(args.seed + 1))
+    weights = io.BytesIO()
+    torch.save(model.state_dict(), weights)
+    weights.seek(0)
+    fn, batch, frame_shape, frame_dtype = build_inference(cfg, weights)
+    check(batch == BATCH and frame_shape == (RES, RES, 3) and frame_dtype == np.uint8,
+          f'serve_http built batch {batch}, frames {frame_shape} {frame_dtype}')
     meanstd = get_meanstd(cfg.dataset.name)
     build = lambda m, decode, device='cuda': make_inference_fn(
         m, None, decode=decode, fold_bn=True, weights_dtype=torch.bfloat16,
         preprocess=meanstd, input_res=RES, device=device)
-    fn = build(model, 'quarter')
     frames = client_frames(args.seed, BATCH)
     t0 = time.time()
     fn(frames[:BATCH])
@@ -361,8 +379,8 @@ def main(argv=None) -> int:
 
     # 6. kernel path vs kernels off (card) and vs f32 plain on the CPU
     x64 = frames[:BATCH]
-    hm_fn = build(model, None)
-    off_fn = build(set_switches(copy.deepcopy(model), False), None)
+    hm_fn = build(set_switches(copy.deepcopy(model), True), None)
+    off_fn = build(model, None)
     hm_k, hm_off = hm_fn(x64), off_fn(x64)
     torch.cuda.synchronize()
     err_switch = rel_l2(hm_k, hm_off)

@@ -2,9 +2,9 @@
 
 Parses the same YAML sections and keys as `hourglass_pose_estimation_tpu/
 config.py` (DATASET / MODEL / TRAIN / COMMON / EVAL, `SECTION.key=value`
-overrides), so one config file drives both packages. The port adds one
-key, MODEL.fuse_upsample (arch=hg: the decoder merges run the fused
-upsample+add kernel, `models/modules.py` Hourglass.fuse_upsample).
+overrides), so one config file drives both packages. Keys that only
+training or multi-chip runs read are not in this copy yet (the loader
+warns and ignores them). One default differs: MODEL.fuse_block is on.
 """
 
 from __future__ import annotations
@@ -37,14 +37,7 @@ class DatasetConfig:
     scale_factor: float = 0.25
     rot_factor: float = 30.0
     label_type: str = 'Gaussian'
-    device_pipeline: bool = True   # augment + render targets on device
     num_samples: int = 512         # synthetic dataset size
-    # device-pipeline canvas: side in px (0 -> max(inp_res, 64)) and
-    # packing mode — 'crop' packs the person's crop region at native
-    # resolution (reference-fidelity for small persons in big frames),
-    # 'image' downscales the whole source image into the canvas.
-    canvas: int = 0
-    canvas_mode: str = 'crop'
 
     def __post_init__(self):
         if self.label_type != 'Gaussian':
@@ -52,8 +45,6 @@ class DatasetConfig:
                              '(parity: common.py:206-207)')
         if self.inp_res % self.out_res != 0:
             raise ValueError('inp_res must be a multiple of out_res')
-        if self.canvas_mode not in ('crop', 'image'):
-            raise ValueError("canvas_mode must be 'crop' or 'image'")
 
 
 @dataclass(frozen=True)
@@ -70,12 +61,14 @@ class ModelConfig:
     # is explicit so reference MSPN checkpoints of any width import.
     # arch=hg rejects non-default values rather than ignore them.
     up_channel_num: int = 256
-    # arch=hg only: run eligible bottlenecks (identity residual, >= 16 px,
-    # running-average BN) as the fused bottleneck kernel
-    # (models/modules.py Bottleneck.fuse_block, ops/hopper/bottleneck.py)
-    fuse_block: bool = False
-    # arch=hg only: decoder merges through the fused upsample+add kernel
-    fuse_upsample: bool = False
+    # arch=hg only: the Hopper kernels on the serving path. Eligible
+    # bottlenecks (identity residual, >= 16 px, running-average BN) run
+    # the fused bottleneck kernel (models/modules.py Bottleneck.fuse_block)
+    # and sum merges the fused upsample+add (Hourglass.fuse_upsample).
+    # On by default, unlike the JAX package: on the card both kernels beat
+    # their plain versions (PERF.md), and CPU tensors take the plain
+    # versions anyway. False runs the plain path, the kernels-off control.
+    fuse_block: bool = True
 
     def __post_init__(self):
         if self.skip_mode not in ('sum', 'concat'):
@@ -96,33 +89,10 @@ class TrainConfig:
     data_parallel: int = 0         # 0 -> all devices
     model_parallel: int = 1
     steps_per_epoch: int = 0       # 0 -> full dataset
-    # route the Trainer through the explicit data-parallel step with its
-    # own gradient all-reduce (the JAX package's parallel/shard_map_step.py)
-    # instead of the implicit sharded one; dp-only. sync_bn=False reproduces torch DataParallel's
-    # silent per-replica BatchNorm statistics.
-    explicit_collectives: bool = False
-    sync_bn: bool = True
-    # per-stack rematerialization (activation memory <-> ~1/3 fwd FLOPs)
-    remat: bool = False
-    # pipeline parallelism over hourglass stacks (parallel/pipeline.py):
-    # size of the 'pipe' mesh axis (1 = off) and microbatches per step
-    pipeline_parallel: int = 1
-    microbatches: int = 2
-    # BN batch statistics from the first k samples only (0 = full batch,
-    # exact reference parity; see models/norm.py ghost-stat BN)
-    bn_stat_samples: int = 0
-    # freeze BatchNorm from this epoch on (0 = never): the train forward
-    # switches to running-average statistics and stat updates stop — a
-    # documented deviation (the reference always uses model.train()'s
-    # batch stats, its src/runner/trainer.py:83); standard practice once
-    # the LR has decayed.
-    freeze_bn_after_epoch: int = 0
 
     def __post_init__(self):
         if self.precision not in ('bf16', 'f32'):
             raise ValueError("precision must be 'bf16' or 'f32'")
-        if self.explicit_collectives and self.model_parallel > 1:
-            raise ValueError('explicit_collectives requires model_parallel=1')
 
 
 @dataclass(frozen=True)
@@ -166,13 +136,6 @@ class CommonConfig:
     dataset: str = ''
     in_res: int = 256
     out_res: int = 64
-    # NMS peak decode + skeleton-line rendering (the reference's
-    # openvino_visualizer/utils.py:35-96 path) instead of circles
-    skeleton: bool = False
-    # Fuse /255 + resize + normalize into the device forward program
-    # (deploy path; ships raw uint8). Off by default: the reference's
-    # host cv2 normalize-then-resize is the parity surface.
-    device_preprocess: bool = False
 
 
 @dataclass(frozen=True)

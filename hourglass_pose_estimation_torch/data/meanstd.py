@@ -9,8 +9,7 @@ normalization stats and any ported checkpoints line up.
 
 Note: the reference's `Estimator.preprocess_bbox` hard-codes *different*
 mpii numbers (estimator.py:44) than its own mean file — an internal
-inconsistency. We use the mean-file values everywhere and expose the
-estimator's variant separately for strict inference parity.
+inconsistency. We use the mean-file values everywhere.
 """
 
 MEANSTD = {
@@ -22,14 +21,6 @@ MEANSTD = {
     'mpii': ((0.406822, 0.444257, 0.466048), (0.228944, 0.232618, 0.236498)),
     'se7en11': ((0.510878, 0.550169, 0.528517), (0.277175, 0.241594, 0.247830)),
     'synthetic': ((0.5, 0.5, 0.5), (0.25, 0.25, 0.25)),
-}
-
-# estimator.py:41-48 hard-coded values (kept for inference parity mode)
-ESTIMATOR_MEANSTD = {
-    'coco': ((0.4003, 0.4314, 0.4534), (0.2466, 0.2467, 0.2562)),
-    'mpii': ((0.4327, 0.4440, 0.4404), (0.2468, 0.2410, 0.2458)),
-    'merl': ((0.4785, 0.5036, 0.5078), (0.2306, 0.2289, 0.2326)),
-    'se7en11': ((0.5109, 0.5502, 0.5285), (0.2772, 0.2416, 0.2478)),
 }
 
 

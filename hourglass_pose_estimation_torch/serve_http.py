@@ -12,7 +12,7 @@ in-flight batches before exit.
     python -m hourglass_pose_estimation_torch.serve_http \\
         configs/train_mpii_8stack.yaml weights.pt --port 8000 \\
         EVAL.export_keypoints=true EVAL.export_preprocess=true \\
-        EVAL.export_batch=64 MODEL.fuse_block=true MODEL.fuse_upsample=true
+        EVAL.export_batch=64
 
     curl -X POST --data-binary @frame.npy \\
         -H 'Content-Type: application/x-npy' http://127.0.0.1:8000/keypoints
@@ -44,7 +44,7 @@ def build_inference(cfg, weights: str, device='cuda'):
                       mobile=cfg.model.mobile, skip_mode=cfg.model.skip_mode,
                       up_channel_num=cfg.model.up_channel_num,
                       fuse_block=cfg.model.fuse_block,
-                      fuse_upsample=cfg.model.fuse_upsample)
+                      fuse_upsample=cfg.model.fuse_block)
     state = torch.load(weights, map_location=dev, weights_only=True)
     preprocess = (get_meanstd(cfg.dataset.name)
                   if cfg.eval.export_preprocess else None)

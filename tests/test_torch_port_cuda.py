@@ -42,8 +42,11 @@ def test_bottleneck_kernel_matches_plain(dev, shape):
     before = fused_bottleneck.launches
     got = fused_bottleneck(x, prm)
     assert fused_bottleneck.launches == before + 1
-    # same rounding points; f32 summation order differs
-    assert _rel(got, bottleneck_reference(x, prm)) < 1e-2
+    # same rounding points; f32 summation order differs. The residual
+    # branch (out - x) is what the kernel computes; x dominates the output
+    ref = bottleneck_reference(x, prm)
+    assert _rel(got.float() - x.float(), ref.float() - x.float()) < 1e-2
+    assert _rel(got, ref) < 1e-2
 
 
 @pytest.mark.parametrize('h,c,dtype', [(12, 32, torch.float32),

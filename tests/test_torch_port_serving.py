@@ -154,12 +154,35 @@ def test_http_round_trip_with_port_inference_fn():
         mb.close()
 
 
+@pytest.mark.parametrize('overrides,on', [([], True),
+                                          (['MODEL.fuse_block=false'], False)])
+def test_serve_http_kernel_switches_follow_fuse_block(tmp_path, monkeypatch,
+                                                      overrides, on):
+    """MODEL.fuse_block (on by default in the port) turns on both the
+    fused bottleneck and the fused upsample+add of the served model."""
+    from hourglass_pose_estimation_torch import export, serve_http
+    from hourglass_pose_estimation_torch.config import load_config
+    from hourglass_pose_estimation_torch.models.modules import Bottleneck, Hourglass
+    weights = tmp_path / 'weights.pt'
+    torch.save({}, weights)          # the stand-in below loads nothing
+    seen = []
+    monkeypatch.setattr(export, 'make_inference_fn',
+                        lambda model, *a, **k: seen.append(model))
+    cfg = load_config(raw={'DATASET': {'name': 'mpii', 'inp_res': 64, 'out_res': 16},
+                           'MODEL': {'num_stacks': 1}}, overrides=overrides)
+    serve_http.build_inference(cfg, str(weights), device='cpu')
+    (model,) = seen
+    assert [m.fuse_block for m in model.modules() if isinstance(m, Bottleneck)] \
+        == [on] * sum(isinstance(m, Bottleneck) for m in model.modules())
+    assert all(m.fuse_upsample is on for m in model.modules()
+               if isinstance(m, Hourglass))
+
+
 def test_serve_http_main_serves_and_drains_on_sigterm(tmp_path):
     cfg = tmp_path / 'tiny.yaml'
     cfg.write_text(
         'DATASET:\n  name: mpii\n  inp_res: 64\n  out_res: 16\n'
-        'MODEL:\n  arch: hg\n  num_stacks: 1\n  fuse_block: True\n'
-        '  fuse_upsample: True\n'
+        'MODEL:\n  arch: hg\n  num_stacks: 1\n'
         'EVAL:\n  export_keypoints: True\n  export_preprocess: True\n'
         '  export_batch: 2\n')
     model = get_model('hg', device='cpu', num_stacks=1, num_classes=16)
