@@ -7,26 +7,49 @@ Phases (any failed check exits non-zero; no phase catches its own
 failure):
   1. the card's name and power limit (nvidia-smi);
   2. build the Hopper kernels from `hourglass_pose_estimation_torch/
-     csrc/*.cu` (nvcc, into the package's ignored build directory);
-  3. each kernel at the serving path's shapes against its plain PyTorch
+     csrc/*.cu` (one nvcc per source, all started together, into the
+     package's ignored build directory);
+  3. each kernel at its main path's shapes against its plain PyTorch
      version on the card, with the tolerance stated, and timed (CUDA
-     events) beside its plain version and its bound;
+     events) beside its plain version, its bound and, where one PyTorch
+     call computes the same function, that call: the serving kernels
+     (fused bottleneck, upsample+add, peak decode) and the training
+     kernels (upsample backward at every decoder shape, the 2x2 max-pool
+     forward and backward at the stem and hourglass shapes with planted
+     ties, the Gaussian target render with joints on the edges, off the
+     map and at weight 0);
   4. the serving path: the flagship 8-stack hourglass of
      configs/train_mpii_8stack.yaml with seeded weights, built by
      serve_http.build_inference into a frames -> keypoints function
      (MODEL.fuse_block at its default, on: fused bottleneck, fused
-     upsample+add, peak decode) behind MicroBatcher(batch 64) and the
-     HTTP server on
-     127.0.0.1, answering 256 POSTed uint8 256x256 frames from 4 client
-     processes of 16 connections each; every reply is checked;
-  5. the kernels' launch counts in that run: 65 bottleneck, 32 upsample
-     and 1 decode launch per batch;
-  6. the last-stack heatmaps of the kernel path against the same weights
-     with the three kernels switched off (card, bf16), and against an f32
-     run of the plain path on the CPU for two frames;
-  7. latency and throughput, then the `kernels` JSON line, then the
-     result line.
---profile adds a torch.profiler breakdown of one batch by kernel.
+     upsample+add, the pool kernel, peak decode) behind MicroBatcher
+     (batch 64) and the HTTP server on 127.0.0.1, answering 256 POSTed
+     uint8 256x256 frames from 4 client processes of 16 connections each;
+     every reply is checked; launch counts 65 bottleneck, 32 upsample,
+     33 pool and 1 decode launch per batch;
+  5. the serving heatmaps of the kernel path against the same weights
+     with the kernels switched off (card, bf16), and against an f32 run
+     of the plain path on the CPU for two frames; latency and throughput;
+  6. the flagship train step (bench.py's build): Synthetic(64 samples,
+     256^2 -> 64^2, sigma 1, scale 0.25, rotation 30), the 8-stack model
+     in bf16 with f32 parameters and BN, RMSprop(2.5e-3, [35, 45], 0.1,
+     100), make_train_step(device_pipeline=True) on one fixed batch of 64
+     canvases: one step against the same step with the kernels off (loss
+     and every gradient; a second kernels-off step reads the gradients'
+     run-to-run noise), 3 warm-up and 10 timed steps (loss of every
+     step, step ms p50, img/s, peak memory), 32 + 32 upsample, 33 + 33
+     pool and 1 render launch per step;
+  7. the eval step on the same batch (65 bottleneck, 32 upsample, 33 pool,
+     1 render launch), its loss against the kernels off;
+  8. the frozen-BN train step with the fused bottleneck, 2 steps against
+     the same 2 steps with the kernels off (loss of each step), 65
+     bottleneck launches and 65 backward calls of its autograd Function
+     per step, gradients reaching a fused block's BN and conv parameters;
+  9. the `kernels` JSON line (launches summed over the main paths of
+     phases 4 and 6-8), then the result line.
+--profile adds torch.profiler breakdowns (by kernel, by launching
+PyTorch op, by kind) of one serving batch and of one train step, and the
+serving front end's rate alone.
 It exits with a non-zero code, printing no result, without a CUDA device
 or without the port package beside it.
 """
@@ -73,6 +96,38 @@ TOL_SWITCHES = 3e-2
 # 7.3e-3 on an H100). Keypoints are not compared: random weights give
 # flat, near-tied heatmaps whose argmax flips under bf16 noise.
 TOL_F32_REFERENCE = 3e-2
+# the training kernels are held exactly to their plain versions (the same
+# f32 arithmetic in the same order, rounded once), except the render: the
+# card's expf against PyTorch's exp, within 1 ulp of f32
+RENDER_MAX_ULP = 1
+# the flagship train step
+TRAIN_BATCH = 64
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+DS_KW = dict(num_samples=64, inp_res=RES, out_res=RES // 4, sigma=1,
+             scale_factor=0.25, rot_factor=30)
+OPT = (2.5e-3, [35, 45], 0.1, 100)
+# one train step with the kernels vs without them (same weights, same
+# draws, TF32 off): the loss, relative, and the gradients, relative L2 of
+# all of them together (the worst single parameter is printed: a conv
+# bias before a train-mode BN has a gradient of rounding noise only). In
+# train mode the kernels' forwards equal the plain path's bit for bit, so
+# the loss reads 0 on an H100; the limit leaves room only for another
+# convolution algorithm. The gradients read 4.2e-2 on an H100, twice
+# alike, and kernels off vs off again reads 0: the gap is the pool
+# backward's tie convention (the pool row of the kernels line reads it on
+# one bf16 tensor), held at about 4x.
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 0.17
+# the eval step (running-average BN, the fused bottleneck) with the
+# kernels vs without them, the loss, relative: read 5.0e-4 on an H100
+TOL_EVAL_LOSS = 2e-3
+# the frozen-BN steps with the fused bottleneck vs the kernels off, each
+# from one state: the loss of steps 1 and 2, relative (read 1.7e-3 and
+# 1.6e-3 on an H100), and the step-1 gradients, relative L2 (read 4.0e-3),
+# each twice alike. They run at the flagship schedule's rate past both
+# decays (2.5e-5), where the trainer freezes BN late in training.
+TOL_FROZEN_LOSS = (7e-3, 7e-3)
+TOL_FROZEN_GRAD = 1.6e-2
 
 
 def fail(msg: str) -> None:
@@ -85,7 +140,7 @@ def check(ok: bool, msg: str) -> None:
 
 
 def rel_l2(a, b) -> float:
-    a, b = a.float(), b.float()
+    a, b = a.detach().float(), b.detach().float()
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
@@ -107,6 +162,17 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 def bound_ms(flops: float, bytes_: float, peak_flops: float):
     t_ops, t_bytes = flops / peak_flops, bytes_ / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops > t_bytes else 'bytes')
+
+
+def kernel_row(name, source, replaces, got, ref, ms, plain_ms, bound, library_ms,
+               **extra) -> dict:
+    b_ms, b_by = bound
+    return dict(name=name, route='cuda',
+                source=f'hourglass_pose_estimation_torch/csrc/{source}',
+                replaces=f'hourglass_pose_estimation_tpu/ops/pallas/{replaces}',
+                launches=0, max_abs_err=float((got.float() - ref.float()).abs().max()),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, **extra)
 
 
 def randomize_bn_(model, gen) -> None:
@@ -167,12 +233,14 @@ def kernel_phases(seed: int):
         print(f'bottleneck {hw}x{hw}: ' + json.dumps(per_shape[hw]), flush=True)
         del x, got, ref
     s = per_shape[64]
-    rows.append(dict(name='fused_bottleneck', route='cuda',
-                     source='hourglass_pose_estimation_torch/csrc/bottleneck.cu',
-                     replaces='hourglass_pose_estimation_tpu/ops/pallas/bottleneck.py:259',
-                     max_abs_err=s['max_abs_err'], ms=s['ms'], plain_ms=s['plain_ms'],
-                     bound_ms=s['bound_ms'], bound_by=s['bound_by'], library_ms=None,
-                     shape='[64,64,64,256] bf16', rel_l2=s['rel_l2']))
+    x = torch.randn(BATCH, 64, 64, 256, generator=gen).to(dev, torch.bfloat16)
+    got, ref = fused_bottleneck(x, prm), bottleneck_reference(x, prm)
+    rows.append(kernel_row(
+        'fused_bottleneck', 'bottleneck.cu', 'bottleneck.py:259', got, ref,
+        s['ms'], s['plain_ms'], (s['bound_ms'], s['bound_by']), None,
+        shape='[64,64,64,256] bf16', rel_l2=s['rel_l2'],
+        library='none: no one PyTorch call computes the whole block'))
+    del x, got, ref
 
     # --- upsample + add: low [64,32,32,256] -> [64,64,64,256], plus H=12
     for (b, h, c) in ((2, 12, 256), (BATCH, 32, 256)):
@@ -183,15 +251,13 @@ def kernel_phases(seed: int):
         torch.cuda.synchronize()
         check(torch.equal(got, ref), f'upsample h={h} differs from its plain version')
     nbytes = 2.0 * (low.numel() + 2 * skip.numel())
-    b_ms, b_by = bound_ms(skip.numel(), nbytes, PEAK_F32)
-    rows.append(dict(name='upsample2x_add', route='cuda',
-                     source='hourglass_pose_estimation_torch/csrc/upsample.cu',
-                     replaces='hourglass_pose_estimation_tpu/ops/pallas/upsample.py:87',
-                     max_abs_err=float((got.float() - ref.float()).abs().max()),
-                     ms=time_ms(lambda: upsample2x_add(low, skip), 50),
-                     plain_ms=time_ms(lambda: upsample2x_add_reference(low, skip), 20),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     shape='low [64,32,32,256] bf16'))
+    rows.append(kernel_row(
+        'upsample2x_add', 'upsample.cu', 'upsample.py:87', got, ref,
+        time_ms(lambda: upsample2x_add(low, skip), 50),
+        time_ms(lambda: upsample2x_add_reference(low, skip), 20),
+        bound_ms(skip.numel(), nbytes, PEAK_F32), None,
+        shape='low [64,32,32,256] bf16',
+        library='none: no one PyTorch call upsamples and adds'))
     del low, skip, got, ref
 
     # --- peak decode: [64,64,64,16] f32 with planted ties, edges, flats
@@ -207,15 +273,150 @@ def kernel_phases(seed: int):
     check(torch.equal(gc, rc) and torch.equal(gm, rm), 'decode differs from its plain version')
     check(gc[0, 0, 1].item() in (9.75, 10.0, 10.25), 'decode tie not first row-major')
     nbytes = 4.0 * (hm.numel() + gc.numel() + gm.numel())
-    b_ms, b_by = bound_ms(hm.numel(), nbytes, PEAK_F32)
-    rows.append(dict(name='decode_peaks', route='cuda',
-                     source='hourglass_pose_estimation_torch/csrc/decode.cu',
-                     replaces='hourglass_pose_estimation_tpu/ops/pallas/decode.py:61',
-                     max_abs_err=float(max((gc - rc).abs().max(), (gm - rm).abs().max())),
-                     ms=time_ms(lambda: decode_peaks(hm), 50),
-                     plain_ms=time_ms(lambda: decode_peaks_reference(hm), 20),
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     shape='[64,64,64,16] f32'))
+    rows.append(kernel_row(
+        'decode_peaks', 'decode.cu', 'decode.py:61', torch.cat([gc.flatten(), gm.flatten()]),
+        torch.cat([rc.flatten(), rm.flatten()]),
+        time_ms(lambda: decode_peaks(hm), 50),
+        time_ms(lambda: decode_peaks_reference(hm), 20),
+        bound_ms(hm.numel(), nbytes, PEAK_F32), None, shape='[64,64,64,16] f32',
+        library='none: no one PyTorch call takes the argmax with its offsets'))
+    return rows
+
+
+def plant_ties_(x) -> None:
+    """2-, 3- and 4-way ties of a 2x2 window's max, in one lane and across
+    whole 16-byte vectors of channels."""
+    import torch
+    x[0, 0:2, 0:2, 0] = 3.0
+    x[0, 2:4, 2:4, 1] = torch.tensor([[2.0, 2.0], [2.0, -1.0]])
+    x[1 % x.shape[0], 0:2, 2:4, 2] = torch.tensor([[1.5, -4.0], [1.5, 0.0]])
+    x[0, 4:6, 4:6, :] = 1.0
+    x[0, 6:8, 0:2, :16] = torch.tensor([[0.5, 0.5], [0.25, 0.5]])[..., None]
+
+
+def training_kernel_phases(seed: int):
+    """The training kernels vs their plain versions, at the train step's
+    shapes: exact, except the render (within RENDER_MAX_ULP)."""
+    import torch
+    import torch.nn.functional as F
+    from hourglass_pose_estimation_torch.ops.heatmap import render_preamble
+    from hourglass_pose_estimation_torch.ops.hopper import (
+        maxpool2x2_bwd, maxpool2x2_bwd_reference, maxpool2x2_fwd,
+        maxpool2x2_reference, render_gaussian, render_gaussian_reference,
+        upsample2x_add_bwd, upsample2x_add_bwd_reference)
+
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(seed + 7)
+    bf16 = torch.bfloat16
+    rows = []
+
+    # --- upsample backward: g [64, {64,32,16,8}^2, 256] bf16 (every decoder
+    # merge of the flagship), and an H=12 d_low
+    times = {}
+    for b, hw in ((2, 24), (BATCH, 8), (BATCH, 16), (BATCH, 32), (BATCH, 64)):
+        g = torch.randn(b, hw, hw, 256, generator=gen).to(dev, bf16)
+        got, ref = upsample2x_add_bwd(g), upsample2x_add_bwd_reference(g)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f'upsample bwd g {tuple(g.shape)} differs from its plain version')
+        if b == BATCH:
+            times[hw] = time_ms(lambda: upsample2x_add_bwd(g), 50)
+    B, H2, W2, C = g.shape
+    lib = lambda: g.view(B, H2 // 2, 2, W2 // 2, 2, C).sum(dim=(2, 4))
+    nbytes = 2.0 * (g.numel() + got.numel())
+    rows.append(kernel_row(
+        'upsample2x_add_bwd', 'upsample.cu', 'upsample.py:44', got, ref, times[64],
+        time_ms(lambda: upsample2x_add_bwd_reference(g), 20),
+        bound_ms(3.0 * got.numel(), nbytes, PEAK_F32), time_ms(lib, 50),
+        shape='g [64,64,64,256] bf16', ms_by_hw=times,
+        library='torch.sum over the [B,H,2,W,2,C] view'))
+    print('upsample bwd: ' + json.dumps(rows[-1]), flush=True)
+    del g, got, ref
+
+    # --- 2x2 max-pool, forward and backward: the stem [64,128,128,128] and
+    # the hourglass [64,{64,32,16,8}^2,256], with planted ties, and H=12
+    # and H=24 inputs (6 and 12 pooled rows)
+    fwd_t, bwd_t = {}, {}
+    shapes = ((2, 12, 256), (2, 24, 256), (BATCH, 8, 256), (BATCH, 16, 256),
+              (BATCH, 32, 256), (BATCH, 128, 128), (BATCH, 64, 256))
+    for b, hw, c in shapes:
+        x = torch.randn(b, hw, hw, c, generator=gen)
+        plant_ties_(x)
+        x = x.to(dev, bf16)
+        g = torch.randn(b, hw // 2, hw // 2, c, generator=gen).to(dev, bf16)
+        out, ref = maxpool2x2_fwd(x), maxpool2x2_reference(x)
+        dx, dref = maxpool2x2_bwd(x, g), maxpool2x2_bwd_reference(x, g)
+        lib_out = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref) and torch.equal(out, lib_out),
+              f'pool fwd {tuple(x.shape)} differs from its plain version')
+        check(torch.equal(dx, dref), f'pool bwd {tuple(x.shape)} differs from its plain version')
+        if b == BATCH:
+            fwd_t[hw] = time_ms(lambda: maxpool2x2_fwd(x), 50)
+            bwd_t[hw] = time_ms(lambda: maxpool2x2_bwd(x, g), 50)
+    # the 4-way tie of the last shape splits its gradient in quarters
+    q = (g[0, 2, 2, :].float() / 4).to(bf16)
+    check(torch.equal(dx[0, 4:6, 4:6, :], q.expand(2, 2, -1)), 'pool bwd: 4-way tie not split')
+    # what the tie convention changes on bf16 normal values: the share of
+    # windows whose max is tied, and dx against PyTorch's route-to-one
+    # backward of the same pool
+    xn = x.permute(0, 3, 1, 2)
+    xw = x.view(BATCH, 32, 2, 32, 2, 256)
+    tied = float(((xw == xw.amax(dim=(2, 4), keepdim=True)).sum(dim=(2, 4)) > 1)
+                 .float().mean())
+    with torch.enable_grad():
+        xl = xn.detach().requires_grad_()
+        F.max_pool2d(xl, 2, 2).backward(g.permute(0, 3, 1, 2))
+    route_gap = rel_l2(xl.grad.permute(0, 2, 3, 1), dx)
+    del xw, xl
+    nbytes = 2.0 * (x.numel() + out.numel())
+    rows.append(kernel_row(
+        'maxpool2x2_fwd', 'pool.cu', 'pool.py:37', out, ref, fwd_t[64],
+        time_ms(lambda: maxpool2x2_reference(x), 20),
+        bound_ms(3.0 * out.numel(), nbytes, PEAK_F32),
+        time_ms(lambda: F.max_pool2d(xn, 2, 2), 50),
+        shape='x [64,64,64,256] bf16', ms_by_hw=fwd_t,
+        library='F.max_pool2d(x, 2, 2), channels-last'))
+    print('pool fwd: ' + json.dumps(rows[-1]), flush=True)
+    nbytes = 2.0 * (2 * x.numel() + g.numel())
+    rows.append(kernel_row(
+        'maxpool2x2_bwd', 'pool.cu', 'pool.py:43', dx, dref, bwd_t[64],
+        time_ms(lambda: maxpool2x2_bwd_reference(x, g), 20),
+        bound_ms(8.0 * g.numel(), nbytes, PEAK_F32), None,
+        shape='x [64,64,64,256] bf16', ms_by_hw=bwd_t, tied_windows=tied,
+        dx_rel_l2_vs_route_to_one=route_gap,
+        library="none: PyTorch's pool backward routes a tie's gradient to one "
+                'element, this one splits it equally'))
+    print('pool bwd: ' + json.dumps(rows[-1]), flush=True)
+    del x, g, out, ref, dx, dref, lib_out, xn
+
+    # --- Gaussian target render: [64, 64, 64, 16] f32 from joints in
+    # input pixels, some on the map's edges, some off it, some invisible
+    R, J = RES, 16
+    joints = torch.rand(BATCH, J, 2, generator=gen) * 1.4 * R - 0.2 * R
+    joints[0, :4] = torch.tensor([[0.0, 0.0], [R - 1.0, R - 1.0], [-30.0, 5.0],
+                                  [R + 20.0, 100.0]])
+    vis = (torch.rand(BATCH, J, generator=gen) > 0.2).float()
+    vis[1, :] = 0.0
+    mu, weight = render_preamble(joints.to(dev), vis.to(dev), (R // 4, R // 4), (R, R), 1)
+    got = render_gaussian(mu, weight, (R // 4, R // 4), 1)
+    ref = render_gaussian_reference(mu, weight, (R // 4, R // 4), 1)
+    torch.cuda.synchronize()
+    check(bool((weight == 0).any() and (weight > 0).any()), 'render: no joint off the map')
+    check(torch.equal(got > 0, ref > 0), 'render: windows differ from the plain version')
+    ulps = int((got.view(torch.int32) - ref.view(torch.int32)).abs().max())
+    check(ulps <= RENDER_MAX_ULP, f'render: {ulps} ulp from the plain version')
+    n_exp = int((got > 0).sum())
+    nbytes = 4.0 * (got.numel() + mu.numel() + weight.numel())
+    rows.append(kernel_row(
+        'render_gaussian', 'render.cu', 'render.py:21', got, ref,
+        time_ms(lambda: render_gaussian(mu, weight, (R // 4, R // 4), 1), 50),
+        time_ms(lambda: render_gaussian_reference(mu, weight, (R // 4, R // 4), 1), 20),
+        # a select per element, and the square, sum, scale and exp of each
+        # rendered one
+        bound_ms(got.numel() + 4.0 * n_exp, nbytes, PEAK_F32), None,
+        shape='[64,64,64,16] f32', max_ulp=ulps,
+        library='none: no one PyTorch call renders windowed Gaussians'))
+    print('render: ' + json.dumps(rows[-1]), flush=True)
     return rows
 
 
@@ -272,13 +473,288 @@ def serve_load(fn, seed: int):
 
 
 def set_switches(model, on: bool):
-    from hourglass_pose_estimation_torch.models.modules import Bottleneck, Hourglass
+    """The port's kernels on or off in `model` (MODEL.fuse_block's two
+    module switches: the fused bottleneck, and the upsample+add with the
+    pools)."""
+    from hourglass_pose_estimation_torch.models import (
+        Bottleneck, Hourglass, HourglassNet)
     for m in model.modules():
         if isinstance(m, Bottleneck):
             m.fuse_block = on
-        elif isinstance(m, Hourglass):
+        elif isinstance(m, (Hourglass, HourglassNet)):
             m.fuse_upsample = on
     return model
+
+
+def zero_counts() -> None:
+    from hourglass_pose_estimation_torch.ops.hopper import KERNEL_WRAPPERS, fused_bottleneck
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    fused_bottleneck.backward_calls = 0
+
+
+def read_counts() -> dict:
+    from hourglass_pose_estimation_torch.ops.hopper import KERNEL_WRAPPERS
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+def expect_counts(got: dict, what: str, **want) -> None:
+    full = {name: want.get(name, 0) for name in got}
+    check(got == full, f'{what}: launch counts {got} != {full}')
+
+
+def grad_rel_l2(model_a, model_b):
+    """(relative L2 of all gradients together, worst single parameter's
+    relative L2 and its name) of model_a's gradients against model_b's."""
+    import torch
+    num = den = 0.0
+    worst, worst_name = 0.0, ''
+    for (name, a), b in zip(model_a.named_parameters(), model_b.parameters()):
+        d = float((a.grad.float() - b.grad.float()).norm() ** 2)
+        n = float(b.grad.float().norm() ** 2)
+        num, den = num + d, den + n
+        r = (d / max(n, 1e-30)) ** 0.5
+        if r > worst:
+            worst, worst_name = r, name
+    return (num / max(den, 1e-30)) ** 0.5, worst, worst_name
+
+
+def train_data(batch: int):
+    """The flagship train step's data: bench.py's Synthetic and one fixed
+    batch of canvases."""
+    from hourglass_pose_estimation_torch.data import Synthetic, make_spec
+    ds = Synthetic(True, **DS_KW)
+    return ds.canvas_batch(range(batch), canvas=RES), make_spec(ds)
+
+
+def flagship_model(seed: int, device='cuda'):
+    """HourglassNet(8 stacks, 1 block, 16 joints, sum merges), bf16
+    compute, f32 parameters and BN, seeded weights, the kernels on."""
+    import torch
+    from hourglass_pose_estimation_torch.models import get_model
+    torch.manual_seed(seed)
+    return get_model('hg', device=device, num_stacks=8, num_blocks=1,
+                     num_classes=16, mobile=False, skip_mode='sum',
+                     fuse_block=True, fuse_upsample=True)
+
+
+def train_phase(seed: int, raw, spec, batch: int, paths: dict):
+    """The flagship train step: kernels on vs off, then warm-up and timed
+    steps on the fixed batch. -> (the trained state, numbers)."""
+    import torch
+    from hourglass_pose_estimation_torch.runner import (
+        init_state, make_optimizer, make_train_step)
+    tx = make_optimizer(*OPT)
+    step = make_train_step(spec, device_pipeline=True)
+    model = flagship_model(seed)
+    state = init_state(model, tx)
+    off = init_state(set_switches(copy.deepcopy(model), False), tx)
+    off2 = init_state(set_switches(copy.deepcopy(model), False), tx)
+
+    # one step from the same weights with the same draws, kernels on and
+    # off; a second kernels-off step reads the run-to-run noise of the
+    # gradients (cuDNN's backward accumulates in no fixed order)
+    zero_counts()
+    state, m_on = step(state, raw, seed)
+    loss_on = float(m_on['loss'])
+    first = read_counts()
+    off, m_off = step(off, raw, seed)
+    loss_off = float(m_off['loss'])
+    off2, _ = step(off2, raw, seed)
+    d_loss = abs(loss_on - loss_off) / abs(loss_off)
+    g_all, g_leaf, g_name = grad_rel_l2(state.model, off.model)
+    g_noise = grad_rel_l2(off2.model, off.model)[0]
+    print(f'train: kernels on vs off: loss {loss_on:.6f} vs {loss_off:.6f} '
+          f'(rel {d_loss:.3e}, tol {TOL_TRAIN_LOSS}); gradients rel L2 {g_all:.3e} '
+          f'(tol {TOL_TRAIN_GRAD}), worst parameter {g_name} {g_leaf:.3e}; '
+          f'kernels off vs off again: gradients rel L2 {g_noise:.3e}', flush=True)
+    check(all(map(lambda v: v == v and abs(v) < float('inf'), (loss_on, loss_off))),
+          'train: loss not finite')
+    check(d_loss <= TOL_TRAIN_LOSS, f'train: loss kernels on vs off {d_loss:.3e}')
+    check(g_all <= TOL_TRAIN_GRAD, f'train: gradients kernels on vs off {g_all:.3e}')
+    del off, off2
+
+    losses = [loss_on]
+    for _ in range(TRAIN_WARMUP - 1):
+        state, m = step(state, raw, seed)
+        losses.append(float(m['loss']))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    times = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        state, m = step(state, raw, seed)
+        losses.append(float(m['loss']))              # waits for the step
+        times.append(time.perf_counter() - t0)
+    paths['train'] = launches = read_counts()
+    per_step = dict(upsample2x_add=32, upsample2x_add_bwd=32, maxpool2x2_fwd=33,
+                    maxpool2x2_bwd=33, render_gaussian=1)
+    expect_counts(first, 'train step', **per_step)
+    expect_counts(launches, f'{TRAIN_TIMED} train steps',
+                  **{k: v * TRAIN_TIMED for k, v in per_step.items()})
+    check(all(l == l and abs(l) < float('inf') for l in losses), f'train: losses {losses}')
+    check(sum(losses[-3:]) / 3 < losses[0],
+          f'train: the loss does not fall on the fixed batch: {losses}')
+    step_ms = sorted(times)[len(times) // 2] * 1e3
+    out = dict(batch=batch, step_ms_p50=step_ms, images_per_s=batch / step_ms * 1e3,
+               step_ms_min=min(times) * 1e3, step_ms_max=max(times) * 1e3,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               losses=losses, acc_last=float(m['acc']),
+               on_vs_off=dict(loss_rel=d_loss, grad_rel_l2=g_all,
+                              worst_leaf=g_name, worst_leaf_rel_l2=g_leaf),
+               off_vs_off_grad_rel_l2=g_noise)
+    print('train: ' + json.dumps(out), flush=True)
+    return state, out
+
+
+def eval_phase(state, raw, spec, batch: int, paths: dict) -> dict:
+    """The eval step on the fixed batch: running-average BN, so the fused
+    bottleneck runs."""
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch.runner import TrainState, make_eval_step
+    eval_step = make_eval_step(spec, device_pipeline=True)
+    eval_step(state, raw, np.ones(batch, np.float32))        # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    m = eval_step(state, raw, np.ones(batch, np.float32))
+    loss, acc = float(m['loss']), float(m['acc'])
+    ms = (time.perf_counter() - t0) * 1e3
+    paths['eval'] = launches = read_counts()
+    expect_counts(launches, 'eval step', fused_bottleneck=65, upsample2x_add=32,
+                  maxpool2x2_fwd=33, render_gaussian=1)
+    check(np.isfinite(loss) and np.isfinite(acc), f'eval: loss {loss}, acc {acc}')
+    # the same step with the kernels off, from the same state
+    off = TrainState(model=set_switches(copy.deepcopy(state.model), False),
+                     tx=state.tx, optimizer=state.optimizer, step=state.step)
+    loss_off = float(eval_step(off, raw, np.ones(batch, np.float32))['loss'])
+    d_loss = abs(loss - loss_off) / abs(loss_off)
+    del off
+    out = dict(loss=loss, acc=acc, step_ms=ms, loss_kernels_off=loss_off, loss_rel=d_loss)
+    print(f'eval: {json.dumps(out)} (tol loss {TOL_EVAL_LOSS})', flush=True)
+    check(d_loss <= TOL_EVAL_LOSS, f'eval: loss kernels on vs off rel {d_loss:.3e}')
+    return out
+
+
+def frozen_phase(state, raw, spec, seed: int, paths: dict) -> dict:
+    """Two frozen-BN train steps with the fused bottleneck (its autograd
+    Function) from the trained state and its optimizer's statistics, at the
+    schedule's rate past both decays, each against the same step with the
+    kernels off from the same state: step 1 from the trained state (loss
+    and gradients), step 2 from the kernel run's state after step 1 (loss:
+    a fold of the fused blocks' parameters left stale by the optimizer's
+    update would show here). Two runs that go their own ways after step 1
+    are no check: with BN frozen on statistics of a few train steps, the
+    loss is steep in the parameters (on the CPU at a small size: gradients
+    9e-8 apart, losses after the second step 7e-2 apart)."""
+    import torch
+    from hourglass_pose_estimation_torch.models.norm import BatchNorm
+    from hourglass_pose_estimation_torch.ops.hopper import fused_bottleneck
+    from hourglass_pose_estimation_torch.runner import (
+        TrainState, make_optimizer, make_train_step)
+    step = make_train_step(spec, device_pipeline=True, freeze_bn=True)
+    tx = make_optimizer(OPT[0] * OPT[2] ** 2, [], OPT[2], OPT[3])
+
+    def fork(src, on: bool):
+        model = set_switches(copy.deepcopy(src.model), on)
+        opt = tx.build(list(model.parameters()))
+        opt.load_state_dict(src.optimizer.state_dict())
+        return TrainState(model=model, tx=tx, optimizer=opt, step=src.step)
+
+    on = fork(state, True)
+    stats = [t.clone() for m in on.model.modules() if isinstance(m, BatchNorm)
+             for t in (m.running_mean, m.running_var)]
+    losses, counts, grads = [], [], None
+    for i in range(2):
+        off = fork(on, False)
+        zero_counts()
+        on, m_on = step(on, raw, seed)
+        loss_on = float(m_on['loss'])
+        counts.append(read_counts())
+        check(fused_bottleneck.backward_calls == 65,
+              f'frozen step {i + 1}: {fused_bottleneck.backward_calls} backward '
+              'calls of the fused bottleneck, not 65')
+        off, m_off = step(off, raw, seed)
+        losses.append((loss_on, float(m_off['loss'])))
+        if i == 0:
+            blk = on.model.hg0.up1_l4.block0            # 64^2: fused
+            for name in ('bn1.weight', 'bn1.bias', 'bn2.weight', 'bn3.bias',
+                         'conv1.weight', 'conv2.weight', 'conv3.weight', 'conv3.bias'):
+                grad = blk.get_parameter(name).grad
+                check(grad is not None and float(grad.abs().max()) > 0,
+                      f'frozen step: hg0.up1_l4.block0.{name} has no gradient')
+            grads = grad_rel_l2(on.model, off.model)
+        del off
+    paths['frozen'] = {k: counts[0][k] + counts[1][k] for k in counts[0]}
+    for i, c in enumerate(counts):
+        expect_counts(c, f'frozen step {i + 1}', fused_bottleneck=65, upsample2x_add=32,
+                      upsample2x_add_bwd=32, maxpool2x2_fwd=33, maxpool2x2_bwd=33,
+                      render_gaussian=1)
+    after = [t for m in on.model.modules() if isinstance(m, BatchNorm)
+             for t in (m.running_mean, m.running_var)]
+    check(all(torch.equal(a, b) for a, b in zip(after, stats)),
+          'frozen step changed the running statistics')
+    rels = [abs(a - b) / abs(b) for a, b in losses]
+    out = dict(losses_on_off=losses, loss_rel=rels, step1_grad_rel_l2=grads[0],
+               step1_worst_leaf=grads[2], step1_worst_leaf_rel_l2=grads[1])
+    print(f'frozen: {json.dumps(out)} (tol loss {TOL_FROZEN_LOSS}, '
+          f'gradients {TOL_FROZEN_GRAD})', flush=True)
+    for i, (r, tol) in enumerate(zip(rels, TOL_FROZEN_LOSS)):
+        check(all(abs(v) < float('inf') for v in losses[i]), f'frozen step {i + 1}: loss not finite')
+        check(r <= tol, f'frozen step {i + 1}: loss kernels on vs off rel {r:.3e} > {tol}')
+    check(grads[0] <= TOL_FROZEN_GRAD, f'frozen step 1: gradients on vs off {grads[0]:.3e}')
+    return out
+
+
+def profile_block(fn, what: str, unprofiled_ms: float, top: int = 14) -> None:
+    """torch.profiler over one call of fn: wall time, device busy time and
+    idle share (against the profiled wall, and against `unprofiled_ms`, the
+    same call's p50 without the profiler), the largest kernels by device
+    time, the PyTorch ops that launched the most device time, and the
+    device time by kind of kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    # device kernels only (an aten op's device time repeats its kernels';
+    # a user annotation's device span repeats the kernels inside it)
+    ev = [e for e in avgs if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+          and not getattr(e, 'is_user_annotation', False)]
+    busy = sum(e.device_time_total for e in ev) / 1e3
+    ev.sort(key=lambda e: -e.device_time_total)
+    print(f'profile {what}: wall {wall:.2f} ms, device busy {busy:.2f} ms '
+          f'(idle share {max(0.0, 1 - busy / wall):.3f}; against the unprofiled '
+          f'{unprofiled_ms:.2f} ms: {max(0.0, 1 - busy / unprofiled_ms):.3f})', flush=True)
+    for e in ev[:top]:
+        print(f'  {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:90]}', flush=True)
+    ops = [e for e in avgs if e.device_type == DeviceType.CPU
+           and getattr(e, 'self_device_time_total', 0) > 0]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    for e in ops[:top]:
+        print(f'  op {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:80]}',
+              flush=True)
+    kinds = {}
+    for e in ev:
+        k = e.key.lower()
+        kind = ('port kernels' if any(n in k for n in (
+                    'upsample2x', 'maxpool2x2', 'render_gaussian', 'bottleneck', 'decode_peaks'))
+                else 'convolution and GEMM' if any(n in k for n in (
+                    'conv', 'gemm', 'xmma', 'sm90', 'cutlass', 'wgrad', 'dgrad', 'cudnn'))
+                else 'reductions' if 'reduce' in k
+                else 'copies and casts' if any(n in k for n in ('copy', 'cat', 'fill'))
+                else 'elementwise' if 'elementwise' in k
+                else 'other')
+        kinds[kind] = kinds.get(kind, 0.0) + e.device_time_total / 1e3
+    for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        print(f'  by kind: {ms:9.3f} ms {kind}', flush=True)
 
 
 def main(argv=None) -> int:
@@ -302,7 +778,7 @@ def main(argv=None) -> int:
     from hourglass_pose_estimation_torch.data import get_meanstd, resolve_num_classes
     from hourglass_pose_estimation_torch.export import make_inference_fn
     from hourglass_pose_estimation_torch.models import HourglassNet, get_model
-    from hourglass_pose_estimation_torch.ops.hopper import KERNEL_WRAPPERS, _build
+    from hourglass_pose_estimation_torch.ops.hopper import _build
     from hourglass_pose_estimation_torch.serve_http import build_inference
 
     torch.backends.cudnn.allow_tf32 = False
@@ -326,7 +802,9 @@ def main(argv=None) -> int:
     print(f'build: {time.time() - t0:.1f} s; ' + ' | '.join(ptxas), flush=True)
 
     # 3. kernels vs plain
-    rows = kernel_phases(args.seed)
+    with torch.no_grad():
+        rows = kernel_phases(args.seed) + training_kernel_phases(args.seed)
+    paths = {}
 
     # 4. the serving path at full width, built as serve_http builds it
     # from the config (MODEL.fuse_block at its default) and the weights
@@ -355,12 +833,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f'first batch (cuDNN plans, allocator): {time.time() - t0:.2f} s', flush=True)
 
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    zero_counts()
     replies, serve_s, stats, batcher = serve_load(fn, args.seed)
-    launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    paths['serve'] = launches = read_counts()
     for i, r in enumerate(replies):
         kps = np.asarray(r['keypoints'], np.float64)
         check(kps.shape == (16, 2) and len(r['scores']) == 16, f'reply {i} shape {kps.shape}')
@@ -374,8 +849,8 @@ def main(argv=None) -> int:
           f'launches {launches}', flush=True)
 
     # 5. launch counts of the main path
-    want = {'fused_bottleneck': 65 * nb, 'upsample2x_add': 32 * nb, 'decode_peaks': nb}
-    check(launches == want, f'launch counts {launches} != {want}')
+    expect_counts(launches, f'serving, {nb} batches', fused_bottleneck=65 * nb,
+                  upsample2x_add=32 * nb, maxpool2x2_fwd=33 * nb, decode_peaks=nb)
 
     # 6. kernel path vs kernels off (card) and vs f32 plain on the CPU
     x64 = frames[:BATCH]
@@ -418,8 +893,6 @@ def main(argv=None) -> int:
             one(xs)
             ts.append(time.perf_counter() - t0)
         lat[b] = sorted(ts)[len(ts) // 2] * 1e3
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
     perf = dict(card=card, batch=BATCH, fn_batch_ms_p50=lat[BATCH],
                 fn_images_per_s=BATCH / lat[BATCH] * 1e3, fn_batch1_ms_p50=lat[1],
                 served_images_per_s=N_REQUESTS / serve_s,
@@ -429,22 +902,8 @@ def main(argv=None) -> int:
     print('serving: ' + json.dumps(perf), flush=True)
 
     if args.profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
         one(x64)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            one(x64)
-            wall = (time.perf_counter() - t0) * 1e3
-        # device kernels only (an aten op's device time repeats its kernels')
-        ev = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-        busy = sum(e.device_time_total for e in ev) / 1e3
-        ev.sort(key=lambda e: -e.device_time_total)
-        print(f'profile: wall {wall:.2f} ms, device busy {busy:.2f} ms '
-              f'(idle share {max(0.0, 1 - busy / wall):.3f})', flush=True)
-        for e in ev[:14]:
-            print(f'  {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:90]}', flush=True)
+        profile_block(lambda: one(x64), 'serving batch of 64', lat[BATCH])
         # the front end alone: the same load against a function that
         # returns fixed keypoints at once
         kp0, mv0 = (t.cpu() for t in fn(x64[:1]))
@@ -452,10 +911,27 @@ def main(argv=None) -> int:
             lambda b: (kp0.expand(len(b), -1, -1), mv0.expand(len(b), -1)), args.seed)
         print(f'front end alone: {N_REQUESTS / s0:.1f} img/s, '
               f'{b0.n_frames / b0.n_batches:.1f} frames per batch', flush=True)
+    del fn, hm_fn, batcher, model, ref_model
+    torch.cuda.empty_cache()
 
-    for r, name in zip(rows, [w.__name__ for w in KERNEL_WRAPPERS]):
-        r['launches'] = launches[name]
-        check(r['launches'] > 0, f'{name} not launched on the main path')
+    # 6-8. the flagship train step, the eval step, the frozen-BN step
+    raw, spec = train_data(TRAIN_BATCH)
+    state, train = train_phase(args.seed, raw, spec, TRAIN_BATCH, paths)
+    eval_phase(state, raw, spec, TRAIN_BATCH, paths)
+    frozen_phase(state, raw, spec, args.seed, paths)
+    if args.profile:
+        from hourglass_pose_estimation_torch.runner import make_train_step
+        step = make_train_step(spec, device_pipeline=True)
+        profile_block(lambda: step(state, raw, args.seed), f'train step, batch {TRAIN_BATCH}',
+                      train['step_ms_p50'], top=24)
+
+    # 9. the kernels, with their launches on the main paths
+    for r in rows:
+        r['launches'] = sum(p[r['name']] for p in paths.values())
+        r['launches_by_path'] = {k: p[r['name']] for k, p in paths.items()}
+        check(r['launches'] > 0, f"{r['name']} not launched on the main paths")
+    print(f'card: {card}; train step p50 {train["step_ms_p50"]:.2f} ms, '
+          f'{train["images_per_s"]:.1f} img/s at batch {TRAIN_BATCH}', flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.time() - t_start:.1f} s', flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

@@ -1,7 +1,11 @@
-"""Host data helpers of the port (this slice: normalization statistics
-and joint counts)."""
+"""Host data of the port: normalisation statistics, joint counts, the
+synthetic dataset and the device augmentation pipeline."""
 
+from hourglass_pose_estimation_torch.data.common import PoseDataset, PoseRecords
 from hourglass_pose_estimation_torch.data.meanstd import MEANSTD, get_meanstd
+from hourglass_pose_estimation_torch.data.pipeline import (
+    PipelineSpec, augment_batch, make_spec, sample_augmentations, to_device)
+from hourglass_pose_estimation_torch.data.synthetic import Synthetic
 
 # joints per dataset (the JAX package's dataset classes' n_joints)
 N_JOINTS = {'mpii': 16, 'mscoco': 17, 'crowdpose': 14, 'hands': 22,

@@ -6,7 +6,8 @@ uint8 frames -> /255 -> half-pixel bilinear resize -> mean/std normalize
 -> the model's last-stack heatmaps -> (optionally) the quarter-offset
 decode and the inverse affine to network-input pixels, on one device.
 Everything that does not depend on the frames (BN folding, the weight
-cast, the fused kernels' parameters) is done once, when it is built.
+cast) is done once, when it is built; the fused kernels' parameters are
+folded at the first call and kept while the weights stay as they are.
 `export_stablehlo` / `export_savedmodel` become a `torch.export` slice.
 """
 
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from hourglass_pose_estimation_torch._device import resolve_device
-from hourglass_pose_estimation_torch.models.modules import Bottleneck, Conv
+from hourglass_pose_estimation_torch.models.modules import Conv
 from hourglass_pose_estimation_torch.models.norm import BatchNorm
 from hourglass_pose_estimation_torch.ops.decode import decode_quarter_offset
 from hourglass_pose_estimation_torch.ops.resize import resize_bilinear_halfpix
@@ -78,9 +79,6 @@ def make_inference_fn(model: torch.nn.Module, variables_or_state=None,
             if isinstance(m, Conv):
                 m.weight.data = m.weight.data.to(weights_dtype)
     model.eval()
-    for m in model.modules():
-        if isinstance(m, Bottleneck):
-            m.freeze()
 
     if preprocess is not None:
         mean = torch.as_tensor(preprocess[0], dtype=torch.float32, device=dev)

@@ -1,4 +1,5 @@
-"""Stacked-hourglass network (Newell et al., ECCV 2016), eval forward.
+"""Stacked-hourglass network (Newell et al., ECCV 2016), train and eval
+forwards.
 
 Port of `hourglass_pose_estimation_tpu/models/hourglass.py::HourglassNet`
 and its `hg` factory. Same structure and parameter counts (1/2/8 stacks =
@@ -13,18 +14,19 @@ as the flax paths (`conv1`, `bn1`, `layer1..3`, `hg{i}`, `res{i}`,
          inter-stack fusion x <- x + fc_back(y) + score_back(score).
 
 Input [B, H, W, 3] (NHWC, any float dtype); output the stacked per-stack
-heatmaps [S, B, H/4, W/4, J] in `out_dtype` (f32).
+heatmaps [S, B, H/4, W/4, J] in `out_dtype` (f32). `forward(x, train=True)`
+normalises with batch statistics (from the first `bn_stat_samples`
+samples when set) and updates the running averages.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.models.modules import (
-    Bottleneck, Conv, Hourglass, ResidualChain)
+    Bottleneck, Conv, Hourglass, ResidualChain, max_pool)
 from hourglass_pose_estimation_torch.models.norm import BatchNorm
 
 
@@ -33,10 +35,12 @@ class HourglassNet(nn.Module):
                  num_classes: int = 16, mobile: bool = False,
                  skip_mode: str = 'sum', num_feats: int = 128,
                  dtype=torch.bfloat16, out_dtype=torch.float32,
-                 fuse_upsample: bool = False, fuse_block: bool = False):
+                 fuse_upsample: bool = False, fuse_block: bool = False,
+                 bn_stat_samples: int = 0):
         super().__init__()
         self.num_stacks = num_stacks
         self.compute_dtype, self.out_dtype = dtype, out_dtype
+        self.fuse_upsample = fuse_upsample     # also routes the stem pool
         ch = num_feats * 2
         bneck = lambda in_ch, planes: Bottleneck(
             in_ch, planes, mobile=mobile, dtype=dtype, fuse_block=fuse_block)
@@ -59,6 +63,9 @@ class HourglassNet(nn.Module):
             if i < num_stacks - 1:
                 self.add_module(f'fc_back{i}', conv1x1(ch, ch))
                 self.add_module(f'score_back{i}', conv1x1(num_classes, ch))
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.stat_samples = bn_stat_samples
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x: [B, H, W, 3] -> [S, B, H/4, W/4, num_classes]."""
@@ -66,7 +73,7 @@ class HourglassNet(nn.Module):
         x = x.permute(0, 3, 1, 2).to(dt)
         x = torch.relu(self.bn1(self.conv1(x), train)).to(dt)
         x = self.layer1(x, train)
-        x = F.max_pool2d(x, 2, 2)
+        x = max_pool(x, self.fuse_upsample)
         x = self.layer2(x, train)
         x = self.layer3(x, train)
         outs = []
@@ -84,18 +91,16 @@ class HourglassNet(nn.Module):
 def hg(device='cuda', **kwargs) -> HourglassNet:
     """Factory with the JAX package's kwarg surface (`hg(**kwargs)`),
     built on `device` in channels-last memory format. Accepts and ignores
-    `out_res` like the reference factory; the training-only options
-    (`remat`, `bn_stat_samples`, `bn_axis_name`) must stay at their
-    defaults until the training slice."""
+    `out_res` like the reference factory. `remat` and `bn_axis_name` must
+    stay at their defaults until their slices."""
     if kwargs.get('up_channel_num', 256) != 256:
         raise ValueError('arch=hg does not support up_channel_num '
                          '(MSPN decoder width); got '
                          f"{kwargs['up_channel_num']!r}")
-    for key, default in (('remat', False), ('bn_stat_samples', 0),
-                         ('bn_axis_name', None)):
+    for key, default in (('remat', False), ('bn_axis_name', None)):
         if kwargs.get(key, default) != default:
-            raise NotImplementedError(f'hg({key}=...) is a training option; '
-                                      'it comes with the training slice')
+            raise NotImplementedError(f'hg({key}=...) is not ported yet: '
+                                      'ROADMAP Queue 1')
     dev = resolve_device(device)
     model = HourglassNet(
         num_stacks=kwargs['num_stacks'],
@@ -106,7 +111,8 @@ def hg(device='cuda', **kwargs) -> HourglassNet:
         num_feats=kwargs.get('num_feats', 128),
         dtype=kwargs.get('dtype', torch.bfloat16),
         fuse_upsample=kwargs.get('fuse_upsample', False),
-        fuse_block=kwargs.get('fuse_block', False))
+        fuse_block=kwargs.get('fuse_block', False),
+        bn_stat_samples=kwargs.get('bn_stat_samples', 0))
     return model.to(dev, memory_format=torch.channels_last).eval()
 
 

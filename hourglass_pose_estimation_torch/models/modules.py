@@ -1,6 +1,7 @@
 """Building blocks: pre-activation bottleneck and the hourglass module.
 
-Port of `hourglass_pose_estimation_tpu/models/modules.py` (eval forward).
+Port of `hourglass_pose_estimation_tpu/models/modules.py` (train and eval
+forwards).
 Tensors are NCHW-shaped in `torch.channels_last` memory format, so the
 physical layout is NHWC: the Hopper kernels read it as it is (through a
 permuted view) and cuDNN's channels-last convolutions use it too.
@@ -17,7 +18,8 @@ from torch import nn
 
 from hourglass_pose_estimation_torch.models.norm import BatchNorm
 from hourglass_pose_estimation_torch.ops.hopper import (
-    BottleneckParams, fused_bottleneck, params_from_variables, upsample2x_add)
+    BottleneckParams, fused_bottleneck, maxpool2x2, params_from_variables,
+    upsample2x_add)
 from hourglass_pose_estimation_torch.ops.hopper.upsample import (
     upsample2x_nearest as _upsample2x_nhwc)
 
@@ -28,6 +30,16 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x spatial upsample of an NCHW tensor (the result
     is channels-last)."""
     return _upsample2x_nhwc(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def max_pool(x: torch.Tensor, kernel: bool) -> torch.Tensor:
+    """2x2 stride-2 max-pool of an NCHW (channels-last) tensor: through the
+    pool kernel's differentiable wrapper (`ops/hopper/pool.py`, which
+    splits the gradient among tied maxima) when `kernel`, else
+    `F.max_pool2d` (the JAX package's `nn.max_pool`)."""
+    if not kernel:
+        return F.max_pool2d(x, 2, 2)
+    return maxpool2x2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 class Conv(nn.Conv2d):
@@ -51,10 +63,12 @@ class Bottleneck(nn.Module):
 
     `mobile=True` makes the 3x3 depthwise. A 1x1-conv shortcut
     (`downsample`) is added iff stride != 1 or in_ch != 2*planes.
-    `fuse_block` runs an eval forward of an identity-residual, stride-1,
-    non-mobile block of at least `fuse_min_hw` pixels a side as the fused
-    bottleneck kernel (ops/hopper/bottleneck.py); every other block takes
-    the standard path, with the JAX package's gating."""
+    `fuse_block` runs a running-average-BN forward (eval, serving, the
+    frozen-BN train step) of an identity-residual, stride-1, non-mobile
+    block of at least `fuse_min_hw` pixels a side as the fused bottleneck
+    (ops/hopper/bottleneck.py), differentiable through its autograd
+    Function; every other block takes the standard path, with the JAX
+    package's gating."""
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
                  mobile: bool = False, dtype=torch.bfloat16,
@@ -73,27 +87,41 @@ class Bottleneck(nn.Module):
         self.conv3 = Conv(planes, c_out, 1, dtype=dtype)
         self.downsample = (Conv(in_ch, c_out, 1, stride, dtype=dtype)
                            if stride != 1 or in_ch != c_out else None)
-        self._fused = None
+        self._fold_cache = None
+
+    _FOLDED = ('bn1', 'bn2', 'bn3', 'conv1', 'conv2', 'conv3')
 
     def fused_params(self) -> BottleneckParams:
         """This block's folded parameters for the fused kernel (through the
-        JAX-layout `params_from_variables`: conv weights OIHW -> HWIO views)."""
+        JAX-layout `params_from_variables`: conv weights OIHW -> HWIO
+        views), differentiable in the live parameters."""
         bn = lambda m: {'scale': m.weight, 'bias': m.bias}
         conv = lambda m: {'kernel': m.weight.permute(2, 3, 1, 0), 'bias': m.bias}
         stats = lambda m: {'mean': m.running_mean, 'var': m.running_var}
-        names = ('bn1', 'bn2', 'bn3', 'conv1', 'conv2', 'conv3')
-        with torch.no_grad():
-            return params_from_variables(
-                {'params': {n: (bn if n.startswith('bn') else conv)(getattr(self, n))
-                            for n in names},
-                 'batch_stats': {n: stats(getattr(self, n)) for n in names[:3]}},
-                eps=self.bn1.eps, dtype=self.compute_dtype)
+        names = self._FOLDED
+        return params_from_variables(
+            {'params': {n: (bn if n.startswith('bn') else conv)(getattr(self, n))
+                        for n in names},
+             'batch_stats': {n: stats(getattr(self, n)) for n in names[:3]}},
+            eps=self.bn1.eps, dtype=self.compute_dtype)
 
-    def freeze(self):
-        """Fold this block's kernel parameters once (an inference function
-        calls this when it is built); later weight edits need another
-        freeze()."""
-        self._fused = self.fused_params()
+    def _folded(self) -> BottleneckParams:
+        """The fold for this forward. Where autograd records, it is made
+        from the live parameters each call (the frozen-BN train step
+        differentiates through it); otherwise it is cached and made again
+        when any source tensor was replaced or changed in place (an
+        optimizer step or a running-statistics update bumps its version)."""
+        if torch.is_grad_enabled():
+            return self.fused_params()
+        srcs = [t for n in self._FOLDED
+                for t in getattr(self, n).parameters(recurse=False)]
+        srcs += [getattr(self, n).running_mean for n in self._FOLDED[:3]]
+        srcs += [getattr(self, n).running_var for n in self._FOLDED[:3]]
+        key = tuple((t.data_ptr(), t.dtype, t._version) for t in srcs)
+        if self._fold_cache is None or self._fold_cache[0] != key:
+            with torch.no_grad():
+                self._fold_cache = (key, self.fused_params())
+        return self._fold_cache[1]
 
     def _fuses(self, x: torch.Tensor, train: bool) -> bool:
         return (self.fuse_block and not train and self.stride == 1
@@ -102,8 +130,8 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self._fuses(x, train):
-            prm = self._fused if self._fused is not None else self.fused_params()
-            y = fused_bottleneck(x.to(self.compute_dtype).permute(0, 2, 3, 1), prm)
+            y = fused_bottleneck(x.to(self.compute_dtype).permute(0, 2, 3, 1),
+                                 self._folded())
             return y.permute(0, 3, 1, 2)
         out = self.conv1(torch.relu(self.bn1(x, train)))
         out = self.conv2(torch.relu(self.bn2(out, train)))
@@ -133,8 +161,10 @@ class ResidualChain(nn.Module):
 class Hourglass(nn.Module):
     """Depth-`depth` encoder-decoder at constant width 2*planes, written
     as an encoder loop, a bottom chain and a decoder loop. Merges are
-    `sum` (optionally through the fused upsample+add kernel) or `concat`
-    with one shared grouped 1x1 conv, as in the JAX package."""
+    `sum` or `concat` with one shared grouped 1x1 conv, as in the JAX
+    package. `fuse_upsample` routes the sum merges through the fused
+    upsample+add and the encoder pools through the pool kernel (each a
+    differentiable wrapper of its forward and backward kernels)."""
 
     def __init__(self, planes: int, depth: int = 4, num_blocks: int = 1,
                  mobile: bool = False, skip_mode: str = 'sum',
@@ -161,7 +191,7 @@ class Hourglass(nn.Module):
         skips = []
         for n in range(self.depth, 0, -1):
             skips.append(getattr(self, f'up1_l{n}')(x, train))
-            x = F.max_pool2d(x, 2, 2)
+            x = max_pool(x, self.fuse_upsample)
             x = getattr(self, f'low1_l{n}')(x, train)
         x = self.low2_l1(x, train)
         for n in range(1, self.depth + 1):

@@ -30,11 +30,16 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point -> argument types (every one returns cudaError_t as int)
 SIGNATURES = {
     'hpe_bottleneck_fwd': [_P] * 14 + [_I] * 6 + [_P],
     'hpe_bottleneck_smem_bytes': [_I, _I],
     'hpe_upsample2x_add': [_P, _P, _P] + [_I] * 6 + [_P],
+    'hpe_upsample2x_add_bwd': [_P, _P] + [_I] * 6 + [_P],
+    'hpe_maxpool2x2_fwd': [_P, _P] + [_I] * 6 + [_P],
+    'hpe_maxpool2x2_bwd': [_P, _P, _P] + [_I] * 6 + [_P],
+    'hpe_render_gaussian': [_P, _P, _P] + [_I] * 5 + [_F, _I, _P],
     'hpe_decode_peaks': [_P, _P, _P] + [_I] * 4 + [_P],
 }
 

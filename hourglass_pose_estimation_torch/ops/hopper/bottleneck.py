@@ -2,9 +2,11 @@
 
 Port of `hourglass_pose_estimation_tpu/ops/pallas/bottleneck.py`
 (`BottleneckParams`, `fold_bn`, `params_from_variables`,
-`bottleneck_reference`, and the forward kernel `fused_bottleneck_pallas`).
-The kernel is `csrc/bottleneck.cu`; its header says what bounds it and
-how its design answers that.
+`bottleneck_reference`, the forward kernel `fused_bottleneck_pallas`, and
+the custom VJP `fused_bottleneck` with its explicit backward
+`bottleneck_backward_reference`). The kernel is `csrc/bottleneck.cu`; its
+header says what bounds it and how its design answers that. The backward
+is plain PyTorch ops, as it is XLA in the JAX package.
 
 Layouts are the JAX package's: x [B, H, W, C] (NHWC), w1 [C, P],
 w2 [3, 3, P, P] (HWIO), w3 [P, C]. The kernel reads each weight
@@ -57,7 +59,7 @@ def _n_major(w: torch.Tensor) -> torch.Tensor:
 
 def _t(v, device=None) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
-        return v.detach().to(device) if device is not None else v.detach()
+        return v.to(device) if device is not None else v
     return torch.as_tensor(np.array(v), device=device)
 
 
@@ -67,7 +69,9 @@ def params_from_variables(block_vars, eps=1e-5, dtype=torch.bfloat16,
 
     block_vars = {'params': {...}, 'batch_stats': {...}} of one
     identity-residual, non-mobile `Bottleneck`, leaves as numpy arrays
-    or tensors (conv kernels HWIO)."""
+    or tensors (conv kernels HWIO). Differentiable: with tensors that
+    require grad, the folded parameters carry the graph back to them, as
+    the JAX fold does for the frozen-BN train step."""
     p, s = block_vars['params'], block_vars['batch_stats']
     f32 = torch.float32
     leaf = lambda d, k: _t(d[k], device).to(f32)
@@ -149,12 +153,9 @@ def _check_cuda(x: torch.Tensor, p: BottleneckParams):
                              'contiguous f32 vector')
 
 
-def fused_bottleneck(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
-    """Fused bottleneck forward, x [B, H, W, C] NHWC, identity residual.
-
-    A CPU tensor takes `bottleneck_reference`; a CUDA tensor launches the
-    kernel (and counts the launch in `fused_bottleneck.launches`) or
-    raises."""
+def _fused_bottleneck_fwd(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
+    """Forward: the kernel for a CUDA tensor (counted in
+    `fused_bottleneck.launches`), `bottleneck_reference` for a CPU one."""
     if x.device.type == 'cpu':
         return bottleneck_reference(x, params)
     _check_cuda(x, params)
@@ -177,4 +178,100 @@ def fused_bottleneck(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
     return out
 
 
+def bottleneck_backward_reference(x: torch.Tensor, params: BottleneckParams,
+                                  g: torch.Tensor):
+    """Explicit VJP of the affine-BN bottleneck: (dx, dparams).
+
+    Rematerialises the activations from x and computes every gradient
+    with operands rounded to x.dtype and f32 accumulation (the products
+    run in f32 on the rounded operands), ReLU masks at u > 0, as
+    `bottleneck_backward_reference` of the JAX package does. Each
+    gradient is returned in its parameter's dtype, dx in x's."""
+    f32, xd = torch.float32, x.dtype
+    p = params
+    B, H, W, C = x.shape
+    P = p.w1.shape[1]
+    rnd = lambda t: t.to(xd).to(f32)
+    nchw = lambda t: t.permute(0, 3, 1, 2)
+    nhwc = lambda t: t.permute(0, 2, 3, 1)
+    red = lambda t: t.sum(dim=(0, 1, 2))
+    mm = lambda a, b: a.reshape(-1, a.shape[-1]).t() @ b.reshape(-1, b.shape[-1])
+
+    # --- recompute the forward activations
+    xf = x.to(f32)
+    t1f = torch.relu(xf * p.a1 + p.b1)
+    t1 = rnd(t1f)
+    h1 = t1 @ rnd(p.w1) + p.c1
+    u2 = h1 * p.a2 + p.b2
+    t2 = rnd(torch.relu(u2))
+    w2 = rnd(p.w2)                                         # HWIO
+    h2 = nhwc(F.conv2d(nchw(t2), w2.permute(3, 2, 0, 1), padding=1)) + p.c2
+    u3 = h2 * p.a3 + p.b3
+    t3 = rnd(torch.relu(u3))
+
+    # --- conv3 (1x1, P -> C) and bn3
+    gf = g.to(f32)
+    gc = rnd(g)
+    dw3 = mm(t3, gc)                                       # [P, C]
+    dc3 = red(gf)
+    dt3 = gc @ rnd(p.w3).t()
+    du3 = torch.where(u3 > 0, dt3, 0.0)
+    da3, db3 = red(du3 * h2), red(du3)
+    dh2 = du3 * p.a3
+
+    # --- conv2 (3x3, P -> P) and bn2
+    dh2c = rnd(dh2)
+    t2p = F.pad(t2, (0, 0, 1, 1, 1, 1))
+    dw2 = torch.stack([torch.stack([mm(t2p[:, ky:ky + H, kx:kx + W], dh2c)
+                                    for kx in range(3)]) for ky in range(3)])
+    dc2 = red(dh2)
+    # transposed conv: correlation with the flipped, in/out-swapped kernel
+    w2t = w2.flip(0, 1).permute(0, 1, 3, 2)                # HWIO of the transpose
+    dt2 = nhwc(F.conv2d(nchw(dh2c), w2t.permute(3, 2, 0, 1), padding=1))
+    du2 = torch.where(u2 > 0, dt2, 0.0)
+    da2, db2 = red(du2 * h1), red(du2)
+    dh1 = du2 * p.a2
+
+    # --- conv1 (1x1, C -> P) and bn1
+    dh1c = rnd(dh1)
+    dw1 = mm(t1, dh1c)                                     # [C, P]
+    dc1 = red(dh1)
+    dt1 = dh1c @ rnd(p.w1).t()
+    du1 = torch.where(t1f > 0, dt1, 0.0)
+    da1, db1 = red(du1 * xf), red(du1)
+    dx = (du1 * p.a1 + gf).to(xd)
+
+    grads = dict(a1=da1, b1=db1, w1=dw1, c1=dc1, a2=da2, b2=db2, w2=dw2,
+                 c2=dc2, a3=da3, b3=db3, w3=dw3, c3=dc3)
+    return dx, BottleneckParams(**{k: grads[k].to(getattr(p, k).dtype)
+                                   for k in BottleneckParams._fields})
+
+
+class _FusedBottleneck(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, *params):
+        p = BottleneckParams(*params)
+        ctx.save_for_backward(x, *params)
+        return _fused_bottleneck_fwd(x, p)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        dx, dp = bottleneck_backward_reference(x, BottleneckParams(*params), g)
+        fused_bottleneck.backward_calls += 1
+        return (dx, *dp)
+
+
+def fused_bottleneck(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
+    """Fused bottleneck, x [B, H, W, C] NHWC, identity residual;
+    differentiable in x and in every folded parameter.
+
+    Forward: a CPU tensor takes `bottleneck_reference`; a CUDA tensor
+    launches the kernel (counted in `fused_bottleneck.launches`) or
+    raises. Backward: `bottleneck_backward_reference` (plain ops,
+    rematerialising from x), counted in `fused_bottleneck.backward_calls`."""
+    return _FusedBottleneck.apply(x, *params)
+
+
 fused_bottleneck.launches = 0
+fused_bottleneck.backward_calls = 0

@@ -1,9 +1,10 @@
-"""Fused nearest-2x upsample + skip-add: Hopper kernel + plain version.
+"""Fused nearest-2x upsample + skip-add: Hopper kernels + plain versions.
 
-Port of the forward of `hourglass_pose_estimation_tpu/ops/pallas/
-upsample.py::upsample2x_add_pallas`. The kernel is `csrc/upsample.cu`;
-its header says what bounds it. The backward (a 2x2 block sum) comes
-with the training slice.
+Port of `hourglass_pose_estimation_tpu/ops/pallas/upsample.py::
+upsample2x_add_pallas` and its custom VJP. The kernels are
+`csrc/upsample.cu` (forward, and the backward of `low`, a 2x2 block sum);
+its header says what bounds them. `upsample2x_add` is differentiable:
+d_skip = g, d_low = `upsample2x_add_bwd(g)`.
 """
 
 from __future__ import annotations
@@ -26,29 +27,43 @@ def upsample2x_add_reference(low: torch.Tensor,
     return upsample2x_nearest(low) + skip
 
 
-def upsample2x_add(low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-    """nearest_upsample_2x(low) + skip, fused. low [B, H, W, C],
-    skip [B, 2H, 2W, C], both NHWC.
+def upsample2x_add_bwd_reference(g: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward of low: the 2x2 block sum of g
+    [B, 2H, 2W, C] -> [B, H, W, C], summed in f32 in the kernel's order
+    ((g00 + g01) + g10) + g11 and rounded once to g's dtype."""
+    B, H2, W2, C = g.shape
+    t = g.float().reshape(B, H2 // 2, 2, W2 // 2, 2, C)
+    s = ((t[:, :, 0, :, 0] + t[:, :, 0, :, 1]) + t[:, :, 1, :, 0]) + t[:, :, 1, :, 1]
+    return s.to(g.dtype)
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (counted in `upsample2x_add.launches`) or raises."""
+
+def _check_vectors(name: str, *ts: torch.Tensor) -> int:
+    """The conditions the 16-byte-vector kernels share; -> element size."""
+    t = ts[0]
+    if t.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f'{name} kernel: dtype {t.dtype}')
+    if any(u.dtype != t.dtype or u.device != t.device for u in ts):
+        raise ValueError(f'{name}: ' + ', '.join(
+            f'{tuple(u.shape)} {u.dtype} {u.device}' for u in ts))
+    esize = t.element_size()
+    if (t.shape[-1] * esize) % 16 != 0:
+        raise ValueError(f'{name} kernel: C*{esize} bytes must be a '
+                         f'multiple of 16, C={t.shape[-1]}')
+    if not all(u.is_contiguous() for u in ts):
+        raise ValueError(f'{name} kernel: tensors must be contiguous NHWC')
+    return esize
+
+
+def _upsample2x_add_fwd(low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """Forward: the kernel for CUDA tensors (counted in
+    `upsample2x_add.launches`), the plain version for CPU tensors."""
     if low.device.type == 'cpu' and skip.device.type == 'cpu':
         return upsample2x_add_reference(low, skip)
     B, H, W, C = low.shape
-    if (tuple(skip.shape) != (B, 2 * H, 2 * W, C) or low.dtype != skip.dtype
-            or low.device != skip.device):
-        raise ValueError(f'upsample2x_add: low {tuple(low.shape)} {low.dtype} '
-                         f'{low.device}, skip {tuple(skip.shape)} {skip.dtype} '
-                         f'{skip.device}')
-    if low.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f'upsample2x_add kernel: dtype {low.dtype}')
-    esize = low.element_size()
-    if (C * esize) % 16 != 0:
-        raise ValueError(f'upsample2x_add kernel: C*{esize} bytes must be a '
-                         f'multiple of 16, C={C}')
-    if not (low.is_contiguous() and skip.is_contiguous()):
-        raise ValueError('upsample2x_add kernel: low and skip must be '
-                         'contiguous NHWC')
+    if tuple(skip.shape) != (B, 2 * H, 2 * W, C):
+        raise ValueError(f'upsample2x_add: low {tuple(low.shape)}, '
+                         f'skip {tuple(skip.shape)}')
+    esize = _check_vectors('upsample2x_add', low, skip)
     out = torch.empty_like(skip)
     err = _build.library().hpe_upsample2x_add(
         low.data_ptr(), skip.data_ptr(), out.data_ptr(), B, H, W, C, esize,
@@ -58,4 +73,46 @@ def upsample2x_add(low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def upsample2x_add_bwd(g: torch.Tensor) -> torch.Tensor:
+    """Backward of low: g [B, 2H, 2W, C] -> d_low [B, H, W, C].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (counted in `upsample2x_add_bwd.launches`) or raises."""
+    if g.device.type == 'cpu':
+        return upsample2x_add_bwd_reference(g)
+    B, H2, W2, C = g.shape
+    if H2 % 2 or W2 % 2:
+        raise ValueError(f'upsample2x_add_bwd: odd g {tuple(g.shape)}')
+    esize = _check_vectors('upsample2x_add_bwd', g)
+    dlow = torch.empty((B, H2 // 2, W2 // 2, C), dtype=g.dtype, device=g.device)
+    err = _build.library().hpe_upsample2x_add_bwd(
+        g.data_ptr(), dlow.data_ptr(), B, H2 // 2, W2 // 2, C, esize,
+        _build.num_sms(g), _build.stream_for(g))
+    _build.check(err, 'upsample2x_add_bwd')
+    upsample2x_add_bwd.launches += 1
+    return dlow
+
+
+class _UpsampleAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, low, skip):
+        return _upsample2x_add_fwd(low, skip)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        return upsample2x_add_bwd(g), g
+
+
+def upsample2x_add(low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """nearest_upsample_2x(low) + skip, fused and differentiable. low
+    [B, H, W, C], skip [B, 2H, 2W, C], both NHWC, one dtype.
+
+    CPU tensors take the plain versions; CUDA tensors launch the forward
+    kernel (counted in `upsample2x_add.launches`) and, in the backward,
+    `upsample2x_add_bwd`, or raise."""
+    return _UpsampleAdd.apply(low, skip)
+
+
 upsample2x_add.launches = 0
+upsample2x_add_bwd.launches = 0

@@ -1,4 +1,4 @@
-"""Carry JAX-package weights into the port.
+"""Carry weights between the JAX package and the port.
 
 The port's submodules are named after the flax module paths, so a JAX
 `{'params', 'batch_stats'}` tree maps onto the port's `state_dict` by a
@@ -9,6 +9,9 @@ walk: the path joins with '.', and the leaf renames as
               convs too: both frameworks split channels contiguously)
               bias -> bias, scale -> weight (BatchNorm)
   batch_stats mean -> running_mean, var -> running_var
+
+`to_jax_variables` is the inverse walk, so a trained port model can be
+compared leaf by leaf under the flax names.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def load_jax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
             if key not in target:
                 problems.append(f'unexpected {where}')
                 continue
-            arr = np.asarray(val, dtype=np.float32)
+            arr = np.array(val, dtype=np.float32)      # a writable copy
             if leaf == 'kernel':
                 arr = arr.transpose(3, 2, 0, 1)
             if tuple(arr.shape) != tuple(target[key].shape):
@@ -66,3 +69,33 @@ def load_jax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
                        f'({len(problems)} problems):\n  '
                        + '\n  '.join(problems[:40]))
     return model
+
+
+def to_jax_variables(model: torch.nn.Module) -> dict:
+    """The port model's state as a JAX `{'params', 'batch_stats'}` tree of
+    nested dicts of f32 numpy arrays (the inverse of
+    `load_jax_variables`: weight [O, I/groups, kh, kw] -> kernel
+    [kh, kw, I/groups, O] for convs, weight -> scale for BatchNorms). The
+    arrays are copies: later training does not change them."""
+    from hourglass_pose_estimation_torch.models.norm import BatchNorm
+    out = {'params': {}, 'batch_stats': {}}
+    for mod_name, mod in model.named_modules():
+        own = list(mod.named_parameters(recurse=False)) + list(
+            mod.named_buffers(recurse=False))
+        for name, t in own:
+            # a copy: .numpy() of a CPU f32 tensor shares its memory
+            arr = t.detach().to(torch.float32).cpu().numpy().copy()
+            if isinstance(mod, BatchNorm):
+                coll, leaf = {'weight': ('params', 'scale'),
+                              'bias': ('params', 'bias'),
+                              'running_mean': ('batch_stats', 'mean'),
+                              'running_var': ('batch_stats', 'var')}[name]
+            elif name == 'weight':
+                coll, leaf, arr = 'params', 'kernel', arr.transpose(2, 3, 1, 0)
+            else:
+                coll, leaf = 'params', name
+            node = out[coll]
+            for part in mod_name.split('.'):
+                node = node.setdefault(part, {})
+            node[leaf] = np.ascontiguousarray(arr)
+    return out

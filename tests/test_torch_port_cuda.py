@@ -10,12 +10,21 @@ import numpy as np
 import pytest
 import torch
 
+from hourglass_pose_estimation_torch.data import Synthetic, make_spec
 from hourglass_pose_estimation_torch.export import make_inference_fn
 from hourglass_pose_estimation_torch.models import get_model
 from hourglass_pose_estimation_torch.models.modules import Bottleneck, Hourglass
+from hourglass_pose_estimation_torch.models.hourglass import HourglassNet
+from hourglass_pose_estimation_torch.ops.heatmap import render_preamble
 from hourglass_pose_estimation_torch.ops.hopper import (
-    bottleneck_reference, decode_peaks, decode_peaks_reference,
-    fused_bottleneck, upsample2x_add, upsample2x_add_reference)
+    KERNEL_WRAPPERS, bottleneck_backward_reference, bottleneck_reference,
+    decode_peaks, decode_peaks_reference, fused_bottleneck, maxpool2x2,
+    maxpool2x2_bwd, maxpool2x2_bwd_reference, maxpool2x2_fwd,
+    maxpool2x2_reference, render_gaussian, render_gaussian_reference,
+    upsample2x_add, upsample2x_add_bwd, upsample2x_add_bwd_reference,
+    upsample2x_add_reference)
+from hourglass_pose_estimation_torch.runner import (
+    init_state, make_optimizer, make_train_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -30,7 +39,8 @@ def dev():
 
 
 def _rel(a, b):
-    return float((a.float() - b.float()).norm() / b.float().norm())
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
 
 
 @pytest.mark.parametrize('shape', [(2, 16, 16), (1, 17, 24), (3, 64, 64)])
@@ -88,7 +98,7 @@ def test_inference_fn_kernel_path_matches_plain_path(dev):
         for m in model.modules():
             if isinstance(m, Bottleneck):
                 m.fuse_block = fuse
-            elif isinstance(m, Hourglass):
+            elif isinstance(m, (Hourglass, HourglassNet)):
                 m.fuse_upsample = fuse
         fn = make_inference_fn(model, None, fold_bn=True, device=dev,
                                preprocess=((0.4, 0.44, 0.47), (0.23, 0.23, 0.24)),
@@ -96,3 +106,97 @@ def test_inference_fn_kernel_path_matches_plain_path(dev):
         outs.append(fn(frames))
     assert outs[0].shape == (2, 32, 32, 16)
     assert _rel(outs[0], outs[1]) < 5e-2
+
+
+@pytest.mark.parametrize('b,h,c,dtype', [(2, 12, 32, torch.float32),
+                                         (1, 3, 8, torch.bfloat16),
+                                         (4, 16, 256, torch.bfloat16)])
+def test_upsample_backward_kernel_is_exact(dev, b, h, c, dtype):
+    g = torch.randn(b, 2 * h, 2 * h + 2, c, device=dev).to(dtype)
+    before = upsample2x_add_bwd.launches
+    got = upsample2x_add_bwd(g)
+    assert upsample2x_add_bwd.launches == before + 1
+    assert torch.equal(got, upsample2x_add_bwd_reference(g))
+
+
+def _tied(b, h, c, dtype, dev):
+    x = torch.randn(b, h, h, c)
+    x[0, 0:2, 0:2, :] = 1.0                              # 4-way
+    x[0, 2:4, 0:2, 0] = torch.tensor([[2.0, 2.0], [2.0, 0.0]])
+    x[-1, 0:2, 2:4, 1] = torch.tensor([[0.5, -1.0], [0.5, 0.0]])
+    return x.to(dev, dtype)
+
+
+@pytest.mark.parametrize('b,h,c,dtype', [(2, 12, 256, torch.bfloat16),
+                                         (2, 24, 128, torch.bfloat16),
+                                         (3, 8, 8, torch.float32)])
+def test_pool_kernels_are_exact(dev, b, h, c, dtype):
+    x = _tied(b, h, c, dtype, dev)
+    g = torch.randn(b, h // 2, h // 2, c, device=dev).to(dtype)
+    out = maxpool2x2_fwd(x)
+    assert torch.equal(out, maxpool2x2_reference(x))
+    assert torch.equal(out, torch.nn.functional.max_pool2d(
+        x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1))
+    dx = maxpool2x2_bwd(x, g)
+    assert torch.equal(dx, maxpool2x2_bwd_reference(x, g))
+    assert torch.equal(dx[0, 0:2, 0:2, :], (g[0, 0, 0].float() / 4).to(dtype).expand(2, 2, -1))
+
+
+def test_render_kernel_within_one_ulp(dev):
+    gen = torch.Generator().manual_seed(0)
+    joints = torch.rand(4, 16, 2, generator=gen) * 90 - 13
+    joints[0, :3] = torch.tensor([[0.0, 0.0], [63.0, 63.0], [-20.0, 70.0]])
+    vis = (torch.rand(4, 16, generator=gen) > 0.2).float()
+    for sigma in (1, 2):
+        mu, w = render_preamble(joints.to(dev), vis.to(dev), (16, 16), (64, 64), sigma)
+        got = render_gaussian(mu, w, (16, 16), sigma)
+        ref = render_gaussian_reference(mu, w, (16, 16), sigma)
+        assert torch.equal(got > 0, ref > 0) and bool((got > 0).any())
+        assert int((got.view(torch.int32) - ref.view(torch.int32)).abs().max()) <= 1
+
+
+def test_gradients_flow_through_the_autograd_functions(dev):
+    torch.manual_seed(0)
+    low = torch.randn(2, 8, 8, 256, device=dev).to(torch.bfloat16).requires_grad_()
+    skip = torch.randn(2, 16, 16, 256, device=dev).to(torch.bfloat16).requires_grad_()
+    g = torch.randn(2, 16, 16, 256, device=dev).to(torch.bfloat16)
+    upsample2x_add(low, skip).backward(g)
+    assert torch.equal(low.grad, upsample2x_add_bwd_reference(g))
+    assert torch.equal(skip.grad, g)
+
+    x = _tied(2, 16, 256, torch.bfloat16, dev).requires_grad_()
+    gp = torch.randn(2, 8, 8, 256, device=dev).to(torch.bfloat16)
+    maxpool2x2(x).backward(gp)
+    assert torch.equal(x.grad, maxpool2x2_bwd_reference(x.detach(), gp))
+
+    blk = Bottleneck(256, 128, fuse_block=True).to(dev)
+    xb = torch.randn(2, 16, 16, 256, device=dev).to(torch.bfloat16).requires_grad_()
+    gb = torch.randn(2, 16, 16, 256, device=dev).to(torch.bfloat16)
+    prm = blk.fused_params()
+    calls = fused_bottleneck.backward_calls
+    fused_bottleneck(xb, prm).backward(gb)
+    assert fused_bottleneck.backward_calls == calls + 1
+    dx, _ = bottleneck_backward_reference(xb.detach(), prm, gb)
+    assert torch.equal(xb.grad, dx)
+    for name in ('bn1.weight', 'bn2.bias', 'conv1.weight', 'conv2.weight', 'conv3.bias'):
+        grad = blk.get_parameter(name).grad
+        assert grad is not None and bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0
+
+
+def test_small_train_step_launches_the_training_kernels(dev):
+    ds = Synthetic(True, num_samples=4, inp_res=64, out_res=16, sigma=1)
+    raw, spec = ds.canvas_batch(range(4), canvas=64), make_spec(ds)
+    torch.manual_seed(0)
+    model = get_model('hg', device=dev, num_stacks=1, num_classes=16,
+                      fuse_block=True, fuse_upsample=True)
+    state = init_state(model, make_optimizer(2.5e-4, [], 0.1, 10))
+    step = make_train_step(spec, device_pipeline=True)
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    losses = [float(step(state, raw, 0)[1]['loss']) for _ in range(3)]
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    # per step: 4 merges, 1 stem + 4 encoder pools, 1 render
+    assert counts == dict(fused_bottleneck=0, upsample2x_add=12, decode_peaks=0,
+                          upsample2x_add_bwd=12, maxpool2x2_fwd=15,
+                          maxpool2x2_bwd=15, render_gaussian=3)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]

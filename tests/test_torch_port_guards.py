@@ -100,6 +100,34 @@ def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
         bk._check_cuda(x[..., :64].contiguous(), p)
 
 
+def test_training_kernel_wrappers_refuse_what_the_kernels_cannot_take():
+    """The upsample-backward, pool and render wrappers raise before a launch
+    on a non-CPU tensor the kernel cannot take (meta tensors here)."""
+    from hourglass_pose_estimation_torch.ops.hopper import (
+        maxpool2x2, maxpool2x2_bwd, maxpool2x2_fwd, render_gaussian,
+        upsample2x_add_bwd)
+    meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, device='meta', dtype=dt)
+    cases = [
+        (upsample2x_add_bwd, (meta(2, 8, 8, 12),), 'multiple of 16'),
+        (upsample2x_add_bwd, (meta(2, 8, 8, 64, dt=torch.float16),), 'dtype'),
+        (upsample2x_add_bwd, (meta(2, 9, 8, 64),), 'odd'),
+        (upsample2x_add_bwd, (meta(2, 8, 64, 8).transpose(2, 3),), 'contiguous'),
+        (maxpool2x2_fwd, (meta(2, 8, 8, 4),), 'multiple of 16'),
+        (maxpool2x2_fwd, (meta(2, 7, 8, 64),), 'even'),
+        (maxpool2x2_fwd, (meta(2, 8, 8, 64, dt=torch.float64),), 'dtype'),
+        (maxpool2x2, (meta(2, 8, 64, 8).transpose(2, 3),), 'contiguous'),
+        (maxpool2x2_bwd, (meta(2, 8, 8, 64), meta(2, 4, 4, 32)), 'g '),
+        (maxpool2x2_bwd, (meta(2, 8, 8, 64), meta(2, 4, 4, 64, dt=torch.float32)), 'maxpool2x2_bwd'),
+        (render_gaussian, (meta(2, 16, 2, dt=torch.int64), meta(2, 16, dt=torch.float32),
+                           (16, 16), 1), 'int32'),
+        (render_gaussian, (meta(2, 16, 2, dt=torch.int32), meta(2, 16, dt=torch.bfloat16),
+                           (16, 16), 1), 'int32'),
+    ]
+    for fn, args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            fn(*args)
+
+
 @pytest.mark.parametrize('stacks,mobile', sorted(REFERENCE_COUNTS))
 def test_param_counts_match_reference(stacks, mobile):
     model = HourglassNet(num_stacks=stacks, num_blocks=1, num_classes=16,

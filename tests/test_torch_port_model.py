@@ -22,7 +22,8 @@ from hourglass_pose_estimation_torch.export import (
     fold_batchnorm, make_inference_fn)
 from hourglass_pose_estimation_torch.models import HourglassNet, get_model
 from hourglass_pose_estimation_torch.models.modules import Bottleneck
-from hourglass_pose_estimation_torch.weights import load_jax_variables
+from hourglass_pose_estimation_torch.weights import (
+    load_jax_variables, to_jax_variables)
 
 torch.set_num_threads(1)
 
@@ -80,6 +81,43 @@ def test_hourglassnet_eval_matches_flax(rng, stacks, mobile, skip_mode):
                                    err_msg=f'fuse={fuse}')
 
 
+@pytest.mark.parametrize('stacks,stat_samples', [(2, 0), (1, 2)])
+def test_hourglassnet_train_matches_flax(stacks, stat_samples):
+    """Train mode (batch statistics, from the first `bn_stat_samples`
+    samples when set, through `hg`): the heatmaps and the updated running
+    statistics against flax `apply(mutable=['batch_stats'])`, with the
+    pool and upsample routes off and on (their plain versions here).
+
+    At 128^2 the hourglass's bottom level is 2x2, so its one-pass variance
+    is taken over 4 values per sample: f32 cancellation there, in another
+    summation order, reads up to 1.8e-4 relative L2 on a stack's heatmaps
+    and 2.7e-4 of a statistics leaf's largest value over six inputs; held
+    at 1e-3. (At 64^2 the bottom is 1x1 and one input in a few reads
+    2.6e-3: too ill-conditioned to compare.)"""
+    kw = dict(num_stacks=stacks, num_blocks=1, num_classes=4, num_feats=16)
+    res = 128
+    jmodel, variables = _jax_model(stacks, bn_stat_samples=stat_samples, **kw)
+    x = np.random.RandomState(stacks).normal(size=(4, res, res, 3)).astype(np.float32)
+    ref, mut = jmodel.apply(variables, jnp.asarray(x), train=True,
+                            mutable=['batch_stats'])
+    ref, ref_stats = np.asarray(ref), jax.tree.leaves(mut['batch_stats'])
+    for fuse in (False, True):
+        model = get_model('hg', device='cpu', dtype=torch.float32,
+                          bn_stat_samples=stat_samples, fuse_block=fuse,
+                          fuse_upsample=fuse, **kw)
+        load_jax_variables(model, variables)
+        got = model(torch.from_numpy(x), train=True).detach().numpy()
+        assert got.shape == ref.shape == (stacks, 4, res // 4, res // 4, 4)
+        for s in range(stacks):
+            rel = np.linalg.norm(got[s] - ref[s]) / np.linalg.norm(ref[s])
+            assert rel <= 1e-3, (fuse, s, rel)
+        stats = jax.tree.leaves(to_jax_variables(model)['batch_stats'])
+        assert len(stats) == len(ref_stats)
+        for a, b in zip(stats, ref_stats):
+            b = np.asarray(b)
+            assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max(), fuse
+
+
 def test_fuse_block_gating_matches_jax():
     """Which blocks take the fused kernel: the JAX gating exactly
     (identity residual, stride 1, non-mobile, >= fuse_min_hw a side,
@@ -96,12 +134,17 @@ def test_fuse_block_gating_matches_jax():
 
 
 def test_train_mode_raises_until_the_training_slice():
-    from hourglass_pose_estimation_torch.models.norm import BatchNorm
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
-        BatchNorm(4)(torch.zeros(1, 4, 2, 2), train=True)
+    """Train mode is ported (it runs and moves the running statistics);
+    what waits for later slices still raises: remat, cross-device BN
+    statistics and MSPN."""
     model = HourglassNet(num_stacks=1, num_classes=4, num_feats=16)
-    with pytest.raises(NotImplementedError, match='training slice'):
-        model(torch.zeros(1, 64, 64, 3), train=True)
+    before = model.bn1.running_var.clone()
+    out = model(torch.rand(2, 64, 64, 3), train=True)
+    assert out.shape == (1, 2, 16, 16, 4) and bool(torch.isfinite(out).all())
+    assert not torch.equal(model.bn1.running_var, before)
+    for key, val in (('remat', True), ('bn_axis_name', 'batch')):
+        with pytest.raises(NotImplementedError, match='Queue 1'):
+            get_model('hg', device='cpu', num_stacks=1, num_classes=4, **{key: val})
     with pytest.raises(NotImplementedError, match='mspn'):
         get_model('mspn', device='cpu', num_stacks=1, num_classes=4)
 

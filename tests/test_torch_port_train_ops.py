@@ -1,0 +1,275 @@
+"""Port training ops vs the JAX package, f32 on the CPU with seeded numpy
+inputs: train-mode BatchNorm, the loss and PCK, and the plain versions
+(and autograd Functions) of the training kernels: the Gaussian render,
+the 2x2 max-pool forward and backward, the upsample backward and the
+fused bottleneck's backward. Pallas kernels run in interpret mode."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from hourglass_pose_estimation_tpu.loss import heatmap_mse_loss as jax_loss
+from hourglass_pose_estimation_tpu.models.norm import BatchNorm as JaxBN
+from hourglass_pose_estimation_tpu.ops.heatmap import (
+    render_gaussian_targets as jax_render)
+from hourglass_pose_estimation_tpu.ops.pallas import (
+    maxpool2x2_pallas, render_gaussian_targets_pallas, upsample2x_add_pallas)
+from hourglass_pose_estimation_tpu.ops.pallas import bottleneck as jbneck
+from hourglass_pose_estimation_tpu.utils import evaluation as jeval
+
+from hourglass_pose_estimation_torch.loss import heatmap_mse_loss
+from hourglass_pose_estimation_torch.models.norm import BatchNorm
+from hourglass_pose_estimation_torch.ops.heatmap import render_gaussian_targets
+from hourglass_pose_estimation_torch.ops.hopper import (
+    BottleneckParams, bottleneck_backward_reference, fused_bottleneck,
+    maxpool2x2, upsample2x_add)
+from hourglass_pose_estimation_torch.utils import evaluation as teval
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# --- train-mode BatchNorm: output and running statistics vs flax apply
+
+@pytest.mark.parametrize('fast,k', [(True, 0), (False, 0), (True, 2), (False, 3)])
+def test_batchnorm_train_matches_flax(rng, fast, k):
+    C = 8
+    x = (rng.normal(size=(4, 5, 6, C)) * 2 + 3).astype(np.float32)
+    params = {'scale': rng.uniform(0.5, 1.5, C).astype(np.float32),
+              'bias': rng.normal(size=C).astype(np.float32)}
+    stats = {'mean': rng.normal(size=C).astype(np.float32),
+             'var': rng.uniform(0.5, 2, C).astype(np.float32)}
+    jbn = JaxBN(use_running_average=False, stat_samples=k, fast_variance=fast,
+                dtype=jnp.float32)
+    ref, mut = jbn.apply({'params': params, 'batch_stats': stats},
+                         jnp.asarray(x), mutable=['batch_stats'])
+    bn = BatchNorm(C, stat_samples=k, fast_variance=fast)
+    with torch.no_grad():
+        bn.weight.copy_(_t(params['scale']))
+        bn.bias.copy_(_t(params['bias']))
+        bn.running_mean.copy_(_t(stats['mean']))
+        bn.running_var.copy_(_t(stats['var']))
+    got = bn(_t(x).permute(0, 3, 1, 2), train=True).permute(0, 2, 3, 1)
+    # f32 reductions in another order: a few ulps of the statistics
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(bn.running_mean.numpy(),
+                               np.asarray(mut['batch_stats']['mean']),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(),
+                               np.asarray(mut['batch_stats']['var']),
+                               rtol=1e-5, atol=1e-6)
+    # eval mode normalises with the updated running averages
+    ev = bn(_t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    jev = JaxBN(use_running_average=True, dtype=jnp.float32).apply(
+        {'params': params, 'batch_stats': mut['batch_stats']}, jnp.asarray(x))
+    np.testing.assert_allclose(ev.detach().numpy(), np.asarray(jev),
+                               rtol=1e-5, atol=1e-5)
+
+
+# --- loss and PCK
+
+def test_loss_matches_jax(rng):
+    out = rng.normal(size=(3, 4, 8, 8, 5)).astype(np.float32)
+    tgt = rng.uniform(size=(4, 8, 8, 5)).astype(np.float32)
+    tw = (rng.uniform(size=(4, 5)) > 0.3).astype(np.float32) * 0.7
+    for w, use in ((tw, True), (None, False)):
+        ref = float(jax_loss(jnp.asarray(out), jnp.asarray(tgt),
+                             None if w is None else jnp.asarray(w), use))
+        got = float(heatmap_mse_loss(_t(out), _t(tgt),
+                                     None if w is None else _t(w), use))
+        np.testing.assert_allclose(got, ref, rtol=1e-6)
+    with pytest.raises(ValueError, match='target_weight'):
+        heatmap_mse_loss(_t(out), _t(tgt), None)
+
+
+def test_accuracy_matches_jax(rng):
+    B, H, W, J = 6, 16, 16, 7
+    out = rng.normal(size=(B, H, W, J)).astype(np.float32)
+    tgt = np.zeros((B, H, W, J), np.float32)
+    for b in range(B):
+        for j in range(J):
+            if rng.uniform() > 0.2:
+                tgt[b, rng.randint(H), rng.randint(W), j] = 1.0
+    out[0, 0, 0, 0] = 50.0                 # flat index 0: the (W, 0) quirk
+    out[1, :, :, 1] = -1.0                 # max <= 0: prediction zeroed
+    tgt[2, 0, 0, 2] = 1.0                  # ground truth at the quirk
+    for idxs in (None, [3, 1, 0]):
+        ref = jeval.accuracy(jnp.asarray(out), jnp.asarray(tgt), idxs=idxs,
+                             thr=0.5)
+        got = teval.accuracy(_t(out), _t(tgt), idxs=idxs, thr=0.5)
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(np.asarray(a, np.float64),
+                                       np.asarray(b, np.float64), rtol=1e-6)
+    jp, jm = jeval.get_preds(jnp.asarray(out))
+    tp, tm = teval.get_preds(_t(out))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    assert tp[0, 0].tolist() == [float(W), 0.0]
+    d = _t(np.array([0.1, -1.0, 0.7, 0.2], np.float32))
+    np.testing.assert_allclose(float(teval.dist_acc(d)),
+                               float(jeval.dist_acc(jnp.asarray(d.numpy()))))
+    assert float(teval.dist_acc(torch.full((3,), -1.0))) == -1.0
+
+
+# --- render: the plain version is the JAX renderer's arithmetic. Equal
+# weights and windows; the values are torch's exp against XLA's: equal at
+# sigma = 1 (the flagship's), within 1 ulp of f32 otherwise.
+
+@pytest.mark.parametrize('sigma,hm,img', [(1, (16, 16), (64, 64)),
+                                          (2, (64, 64), (256, 256)),
+                                          (1, (12, 20), (48, 80))])
+def test_render_plain_matches_jax_and_pallas_exactly(rng, sigma, hm, img):
+    B, J = 4, 16
+    joints = rng.uniform(-0.3 * img[0], 1.3 * img[0], size=(B, J, 2)).astype(np.float32)
+    joints[0, :4] = [[0, 0], [img[0] - 1, img[1] - 1], [-2, 5], [img[0] + 3, 7]]
+    vis = (rng.uniform(size=(B, J)) > 0.2).astype(np.float32)
+    kw = dict(heatmap_size=hm, image_size=img, sigma=sigma)
+    t, w = render_gaussian_targets(_t(joints), _t(vis), **kw)
+    jt, jw = jax_render(joints, vis, **kw)
+    pt, pw = render_gaussian_targets_pallas(joints, vis, interpret=True, **kw)
+    assert t.shape == (B, hm[1], hm[0], J) and t.dtype == torch.float32
+    np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(w.numpy(), np.asarray(pw))
+    for ref in (np.asarray(jt), np.asarray(pt)):
+        np.testing.assert_array_equal(t.numpy() > 0, ref > 0)
+        if sigma == 1:
+            np.testing.assert_array_equal(t.numpy(), ref)
+        np.testing.assert_array_max_ulp(t.numpy(), ref, maxulp=1)
+    assert (t.numpy() > 0).any() and (w.numpy() == 0).any()
+
+
+# --- max-pool: forward vs the Pallas kernel, backward vs jax.grad of it
+
+def _pool_input(rng, H, W, C, dtype=np.float32):
+    """Random values with planted 2-, 3- and 4-way ties of the window max."""
+    x = rng.normal(size=(2, H, W, C)).astype(np.float32)
+    x[0, 0:2, 0:2, 0] = 3.0                        # 4 equal
+    x[0, 2:4, 2:4, 1] = [[2.0, 2.0], [2.0, -1.0]]  # 3 equal
+    x[1, 0:2, 2:4, 2] = [[1.5, -4.0], [1.5, 0.0]]  # 2 equal
+    x[1, 2:4, 0:2, 3] = [[-5.0, -5.0], [-6.0, -5.0]]
+    return x.astype(dtype)
+
+
+@pytest.mark.parametrize('H,W,C', [(8, 8, 16), (24, 24, 32), (12, 20, 8)])
+def test_maxpool_plain_matches_pallas(rng, H, W, C):
+    x = _pool_input(rng, H, W, C)
+    g = rng.normal(size=(2, H // 2, W // 2, C)).astype(np.float32)
+    ref = maxpool2x2_pallas(jnp.asarray(x), True)
+    _, vjp = jax.vjp(lambda a: maxpool2x2_pallas(a, True), jnp.asarray(x))
+    ref_dx, = vjp(jnp.asarray(g))
+    xt = _t(x).requires_grad_(True)
+    out = maxpool2x2(xt)
+    out.backward(_t(g))
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(ref_dx))
+    # ties split the window's gradient: 4-way -> g/4 each, 3-way -> g/3
+    np.testing.assert_allclose(xt.grad[0, 0:2, 0:2, 0].numpy(), g[0, 0, 0, 0] / 4)
+    np.testing.assert_allclose(xt.grad[0, 2, 2:4, 1].numpy(), g[0, 1, 1, 1] / 3)
+    assert float(xt.grad[0, 3, 3, 1]) == 0.0
+
+
+def test_maxpool_bf16_backward_matches_pallas(rng):
+    x = _pool_input(rng, 8, 8, 16)
+    g = rng.normal(size=(2, 4, 4, 16)).astype(np.float32)
+    xb, gb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a: maxpool2x2_pallas(a, True), xb)
+    ref, = vjp(gb)
+    xt = _t(x).to(torch.bfloat16).requires_grad_(True)
+    maxpool2x2(xt).backward(_t(g).to(torch.bfloat16))
+    np.testing.assert_array_equal(xt.grad.float().numpy(),
+                                  np.asarray(ref, np.float32))
+
+
+# --- upsample backward vs the VJP of the Pallas kernel
+
+@pytest.mark.parametrize('H,W,C', [(8, 8, 32), (12, 12, 32), (3, 5, 8)])
+def test_upsample_backward_matches_pallas_vjp(rng, H, W, C):
+    low = rng.normal(size=(2, H, W, C)).astype(np.float32)
+    skip = rng.normal(size=(2, 2 * H, 2 * W, C)).astype(np.float32)
+    g = rng.normal(size=(2, 2 * H, 2 * W, C)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: upsample2x_add_pallas(a, b, True),
+                     jnp.asarray(low), jnp.asarray(skip))
+    rl, rs = vjp(jnp.asarray(g))
+    lt, st = _t(low).requires_grad_(True), _t(skip).requires_grad_(True)
+    upsample2x_add(lt, st).backward(_t(g))
+    # f32: four addends, one order vs another; skip's gradient is g
+    np.testing.assert_allclose(lt.grad.numpy(), np.asarray(rl), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(st.grad.numpy(), np.asarray(rs))
+
+
+def test_upsample_backward_bf16_within_one_ulp_of_pallas(rng):
+    """The port sums the four bf16 taps in f32 and rounds once; the Pallas
+    kernel sums in bf16. They may differ by one bf16 ulp of the result."""
+    g = rng.normal(size=(2, 16, 24, 64)).astype(np.float32)
+    gb = jnp.asarray(g, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a, b: upsample2x_add_pallas(a, b, True),
+                     jnp.zeros((2, 8, 12, 64), jnp.bfloat16),
+                     jnp.zeros((2, 16, 24, 64), jnp.bfloat16))
+    ref = np.asarray(vjp(gb)[0], np.float32)
+    lt = torch.zeros(2, 8, 12, 64, dtype=torch.bfloat16, requires_grad=True)
+    st = torch.zeros(2, 16, 24, 64, dtype=torch.bfloat16, requires_grad=True)
+    upsample2x_add(lt, st).backward(_t(g).to(torch.bfloat16))
+    got = lt.grad.float().numpy()
+    ulp = np.spacing(np.abs(ref).astype(np.float32)) * 2.0 ** 16   # bf16 ulp
+    assert (np.abs(got - ref) <= ulp).all()
+
+
+# --- fused bottleneck: autograd Function vs the JAX custom VJP
+
+def _port_params(p, requires_grad=False):
+    return BottleneckParams(*[_t(np.asarray(v)).requires_grad_(requires_grad)
+                              for v in p])
+
+
+def test_bottleneck_backward_matches_jax(rng):
+    x = rng.normal(size=(2, 8, 8, 32)).astype(np.float32)
+    g = rng.normal(size=(2, 8, 8, 32)).astype(np.float32)
+    params = jbneck.random_params(jax.random.PRNGKey(3), 32, 16,
+                                  dtype=jnp.float32, scale=0.3)
+    jdx, jdp = jbneck.bottleneck_backward_reference(jnp.asarray(x), params,
+                                                    jnp.asarray(g))
+    dx, dp = bottleneck_backward_reference(_t(x), _port_params(params), _t(g))
+    # f32 products summed in another order over cancelling terms: the JAX
+    # package holds this backward to its own VJP at the same tolerance
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), **tol)
+    for name, a, b in zip(BottleneckParams._fields, dp, jdp):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name, **tol)
+
+    # through the autograd Function vs jax.grad of the custom VJP
+    loss = lambda xx, pp: jnp.sum(jnp.sin(jbneck.fused_bottleneck(xx, pp, True)))
+    jgx, jgp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), params)
+    xt = _t(x).requires_grad_(True)
+    pt = _port_params(params, requires_grad=True)
+    before = fused_bottleneck.backward_calls
+    torch.sin(fused_bottleneck(xt, pt)).sum().backward()
+    assert fused_bottleneck.backward_calls == before + 1
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), **tol)
+    for name, a, b in zip(BottleneckParams._fields, pt, jgp):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), err_msg=name, **tol)
+
+
+def test_bottleneck_backward_bf16_matches_jax(rng):
+    """bf16 operands, f32 accumulation: the rounding points agree with the
+    JAX backward, so the gradients agree to f32 summation noise."""
+    x = (0.5 * rng.normal(size=(2, 8, 8, 32))).astype(np.float32)
+    g = rng.normal(size=(2, 8, 8, 32)).astype(np.float32)
+    params = jbneck.random_params(jax.random.PRNGKey(1), 32, 16)
+    xb, gb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    jdx, jdp = jbneck.bottleneck_backward_reference(xb, params, gb)
+    tp = BottleneckParams(*[_t(np.asarray(v, np.float32)).to(
+        torch.bfloat16 if v.dtype == jnp.bfloat16 else torch.float32) for v in params])
+    dx, dp = bottleneck_backward_reference(_t(x).to(torch.bfloat16), tp,
+                                           _t(g).to(torch.bfloat16))
+    assert dx.dtype == torch.bfloat16 and dp.w2.dtype == torch.bfloat16
+    rel = lambda a, b: np.linalg.norm(a - b) / np.linalg.norm(b)
+    assert rel(dx.float().numpy(), np.asarray(jdx, np.float32)) < 1e-2
+    for name, a, b in zip(BottleneckParams._fields, dp, jdp):
+        assert rel(a.float().numpy(), np.asarray(b, np.float32)) < 1e-2, name

@@ -1,0 +1,248 @@
+"""Port train and eval steps vs the JAX package's, on the CPU: a 1-stack
+HourglassNet at 64^2, batch 4, filled from the flax variables, the same
+canvases and the JAX augmentation draws injected into the port's step.
+Checked: the train step through the device pipeline (step 1, f32), two
+train steps on the same staged batches (f64 compute, see there), the
+frozen-BN step through the fused bottleneck's autograd Function, and the
+eval step with a padded batch."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from hourglass_pose_estimation_tpu.data import Synthetic as JaxSynthetic
+from hourglass_pose_estimation_tpu.data import make_spec as jax_make_spec
+from hourglass_pose_estimation_tpu.loss import heatmap_mse_loss as jax_loss
+from hourglass_pose_estimation_tpu.data.pipeline import (
+    augment_batch as jax_augment, sample_augmentations as jax_sample)
+from hourglass_pose_estimation_tpu.models import HourglassNet as JaxNet
+from hourglass_pose_estimation_tpu.runner import train_state as jts
+
+from hourglass_pose_estimation_torch.data import (
+    Synthetic, augment_batch, make_spec, sample_augmentations, to_device)
+from hourglass_pose_estimation_torch.models import HourglassNet
+from hourglass_pose_estimation_torch.models.norm import BatchNorm
+from hourglass_pose_estimation_torch.ops.hopper import fused_bottleneck
+from hourglass_pose_estimation_torch.runner import train_state as tts
+from hourglass_pose_estimation_torch.weights import (
+    load_jax_variables, to_jax_variables)
+
+torch.set_num_threads(1)
+
+DS_KW = dict(num_samples=8, inp_res=64, out_res=16, sigma=1,
+             scale_factor=0.25, rot_factor=30)
+LR = (2.5e-3, [], 0.1, 4)
+# f32 gradients of the running-average forward against jax.grad: the worst
+# leaf reads 7e-4 relative L2 (a deep block whose calibrated variance is
+# small); held at about 4x that
+GRAD_RTOL = 3e-3
+
+
+def _jax_state(fuse_block=False, dtype=jnp.float32, lr=LR):
+    model = JaxNet(num_stacks=1, num_blocks=1, num_classes=16, dtype=dtype,
+                   out_dtype=dtype, fuse_block=fuse_block)
+    return jts.init_state(model, jax.random.PRNGKey(0), (1, 64, 64, 3),
+                          jts.make_optimizer(*lr))
+
+
+def _port_state(jstate, dtype=torch.float32, lr=LR, **switches):
+    model = HourglassNet(num_stacks=1, num_blocks=1, num_classes=16,
+                         dtype=dtype, out_dtype=dtype, **switches)
+    load_jax_variables(model, jax.tree.map(np.asarray, {
+        'params': jstate.params, 'batch_stats': jstate.batch_stats}))
+    return tts.init_state(model, tts.make_optimizer(*lr))
+
+
+def _calibrated(jstate, raw, spec):
+    """jstate with running statistics equal to one batch's statistics (a
+    train-mode forward of the port at momentum 0, carried back under the
+    flax names), so that the running-average forward stays normalised.
+    The batch is the whole 8-sample dataset: the one-pass variance of the
+    1x1 bottom level over only 4 samples is noisy enough (f32
+    cancellation) to move the eval loss by 3e-5."""
+    model = _port_state(jstate).model
+    data = augment_batch(to_device(raw, 'cpu'), sample_augmentations(
+        None, torch.from_numpy(raw['scale']), scale_factor=0, rot_factor=0,
+        train=False), spec, False)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.momentum = 0.0
+    with torch.no_grad():
+        model(data['image'], train=True)
+    return jstate.replace(batch_stats=jax.tree.map(
+        jnp.asarray, to_jax_variables(model)['batch_stats']))
+
+
+def _inject_jax_draws(monkeypatch, raw, spec, rng, steps):
+    """The port's step draws its augmentations through
+    `sample_augmentations`; hand it the JAX step's draws instead."""
+    draws = iter([tuple(torch.from_numpy(np.array(d)) for d in jax_sample(
+        jax.random.fold_in(rng, s), jnp.asarray(raw['scale']),
+        scale_factor=spec.scale_factor, rot_factor=spec.rot_factor,
+        train=True)) for s in range(steps)])
+    monkeypatch.setattr(tts, 'sample_augmentations',
+                        lambda gen, scales, **kw: next(draws))
+
+
+@pytest.fixture(scope='module')
+def data():
+    ds, jds = Synthetic(True, **DS_KW), JaxSynthetic(True, **DS_KW)
+    return ds.canvas_batch([0, 1, 2, 3], canvas=64), make_spec(ds), jax_make_spec(jds)
+
+
+def _staged(raw, jspec, rng, steps):
+    """The JAX pipeline's (image, target, target_weight) for each step key:
+    the same inputs for both packages, without the warp's f32 rounding
+    differences (see test_torch_port_train_data.py)."""
+    keys = ('image', 'target', 'target_weight')
+    return [{k: np.asarray(v) for k, v in jax_augment(
+        raw, jax.random.fold_in(rng, s), jspec, True).items() if k in keys}
+        for s in range(steps)]
+
+
+@pytest.fixture(scope='module')
+def calib():
+    return Synthetic(True, **DS_KW).canvas_batch(range(8), canvas=64)
+
+
+def test_train_step_matches_jax(data, monkeypatch):
+    """One step through the device pipeline, in f32."""
+    raw, spec, jspec = data
+    rng = jax.random.PRNGKey(7)
+    jstate = _jax_state()
+    state = _port_state(jstate)
+    _inject_jax_draws(monkeypatch, raw, spec, rng, 2)
+    jstep = jts.make_train_step(jspec, device_pipeline=True)
+    step = tts.make_train_step(spec, device_pipeline=True)
+
+    jstate, jm1 = jstep(jstate, raw, rng)
+    state, m1 = step(state, raw, 7)
+    np.testing.assert_allclose(float(m1['loss']), float(jm1['loss']), rtol=1e-5)
+    np.testing.assert_allclose(float(m1['acc']), float(jm1['acc']), atol=1e-6)
+    got = to_jax_variables(state.model)['batch_stats']
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got),
+                            jax.tree.leaves(jstate.batch_stats)):
+        # the hourglass's bottom levels (1x1 and 2x2 maps over 4 samples)
+        # take the one-pass variance of a handful of values, whose
+        # cancellation lifts f32 summation noise to 1.5e-4 of a leaf's
+        # largest value (read here); elsewhere it stays under 1e-5
+        b = np.asarray(b)
+        assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max(), \
+            jax.tree_util.keystr(path)
+    assert state.step == int(jstate.step) == 1
+
+
+def test_two_train_steps_match_jax_in_f64(data):
+    """Two steps on the same staged batches (the JAX pipeline's output for
+    the step keys), in f64 compute with f32 parameters. In f32 the second
+    step is chaotic in both packages alike: RMSprop's first update is
+    lr * 10 * sign(g) for every parameter, so each gradient element at the
+    level of f32 noise moves its parameter by +-0.025 at random. Measured
+    here in f32: 6e-6 apart at step 1, 5e-3 at step 2, 0.14 at step 3.
+    In f64 the noise is gone: 3e-15 and 1.3e-9 (read here), held at
+    1e-10 and 1e-7."""
+    raw, spec, jspec = data
+    rng = jax.random.PRNGKey(7)
+    staged = _staged(raw, jspec, rng, 2)
+    with jax.enable_x64(True):
+        jstate = _jax_state(dtype=jnp.float64)
+        state = _port_state(jstate, dtype=torch.float64)
+        jstep = jts.make_train_step(jspec, device_pipeline=False)
+        step = tts.make_train_step(spec, device_pipeline=False)
+        jstate, jm1 = jstep(jstate, staged[0], rng)
+        state, m1 = step(state, staged[0], 7)
+        np.testing.assert_allclose(float(m1['loss']), float(jm1['loss']), rtol=1e-10)
+        got = to_jax_variables(state.model)
+        for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(got['batch_stats']),
+                                jax.tree.leaves(jstate.batch_stats)):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=1e-7,
+                                       err_msg=jax.tree_util.keystr(path))
+        jstate, jm2 = jstep(jstate, staged[1], rng)
+        state, m2 = step(state, staged[1], 7)
+        np.testing.assert_allclose(float(m2['loss']), float(jm2['loss']), rtol=1e-7)
+        np.testing.assert_allclose(float(m2['acc']), float(jm2['acc']), atol=1e-6)
+    assert state.step == int(jstate.step) == 2
+
+
+def _grad_tree(model):
+    """The parameters' .grad as a flax-named tree (through
+    `to_jax_variables`, which reads the parameters)."""
+    saved = [p.detach().clone() for p in model.parameters()]
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.grad)
+        tree = to_jax_variables(model)['params']
+        for p, v in zip(model.parameters(), saved):
+            p.copy_(v)
+    return tree
+
+
+def test_frozen_bn_step_with_fused_blocks_matches_jax(data, calib):
+    """freeze_bn with fuse_block, on the same staged batch in f32: the fused
+    bottlenecks run in the step and their autograd Function carries the
+    backward to gamma, beta and the conv weights. Checked against JAX: the
+    loss, and every parameter's gradient against `jax.grad` of the frozen
+    loss (which runs the JAX fused blocks' custom VJP). The running
+    statistics stay as they were.
+
+    A second step's loss is no check here: after RMSprop's first update
+    (lr * 10 * sign(g) per parameter) f32 noise in the signs of near-zero
+    gradients decides it. Read with these statistics: inf in both at
+    lr 2.5e-3, 1.5e-3 apart at 2.5e-5."""
+    raw, spec, jspec = data
+    rng = jax.random.PRNGKey(5)
+    staged = _staged(raw, jspec, rng, 1)[0]
+    jstate = _calibrated(_jax_state(fuse_block=True), calib, spec)
+    state = _port_state(jstate, fuse_block=True, fuse_upsample=True)
+    stats0 = to_jax_variables(state.model)['batch_stats']
+
+    def frozen_loss(params):
+        outs = jstate.apply_fn({'params': params, 'batch_stats': jstate.batch_stats},
+                               jnp.asarray(staged['image']), train=False)
+        return jax_loss(outs, staged['target'], staged['target_weight'])
+
+    jloss, jgrads = jax.value_and_grad(frozen_loss)(jstate.params)
+    step = tts.make_train_step(spec, device_pipeline=False, freeze_bn=True)
+    calls = fused_bottleneck.backward_calls
+    state, m1 = step(state, staged, 5)
+    # 3 fused blocks at 16^2 (layer3, hg0.up1_l4, res0)
+    assert fused_bottleneck.backward_calls == calls + 3
+    np.testing.assert_allclose(float(m1['loss']), float(jloss), rtol=1e-5)
+    blk = state.model.hg0.up1_l4.block0
+    assert blk._fuses(torch.zeros(1, 256, 16, 16), train=False)
+    for name in ('bn1.weight', 'bn1.bias', 'bn3.weight', 'conv1.weight',
+                 'conv2.weight', 'conv3.weight', 'conv3.bias'):
+        grad = blk.get_parameter(name).grad
+        assert grad is not None and float(grad.abs().max()) > 0, name
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(_grad_tree(state.model)),
+                            jax.tree.leaves(jgrads)):
+        b = np.asarray(b)
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        assert rel <= GRAD_RTOL, (jax.tree_util.keystr(path), rel)
+    after = to_jax_variables(state.model)['batch_stats']
+    for a, b in zip(jax.tree.leaves(after), jax.tree.leaves(stats0)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_eval_step_with_padding_matches_jax(data, calib):
+    raw, spec, jspec = data
+    ds = Synthetic(True, **DS_KW)
+    padded = ds.canvas_batch([0, 1, 1, 1], canvas=64)
+    valid = np.array([1.0, 1.0, 0.0, 0.0], np.float32)
+    jstate = _calibrated(_jax_state(), calib, spec)
+    ref = jts.make_eval_step(jspec, device_pipeline=True)(
+        jstate, padded, jnp.asarray(valid))
+    state = _port_state(jstate, fuse_block=True, fuse_upsample=True)
+    eval_step = tts.make_eval_step(spec, device_pipeline=True)
+    got = eval_step(state, padded, valid)
+    assert float(got['n']) == 2.0
+    np.testing.assert_allclose(float(got['loss']), float(ref['loss']), rtol=1e-5)
+    np.testing.assert_allclose(float(got['acc']), float(ref['acc']), atol=1e-6)
+    np.testing.assert_allclose(got['per_joint'].numpy(),
+                               np.asarray(ref['per_joint']), atol=1e-6)
+    # the B/n rescale: the padded batch reports the loss of its valid rows
+    exact = eval_step(state, ds.canvas_batch([0, 1], canvas=64), valid[:2])
+    np.testing.assert_allclose(float(got['loss']), float(exact['loss']), rtol=1e-5)
