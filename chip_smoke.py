@@ -12,12 +12,15 @@ failure):
   3. each kernel at its main path's shapes against its plain PyTorch
      version on the card, with the tolerance stated, and timed (CUDA
      events) beside its plain version, its bound and, where one PyTorch
-     call computes the same function, that call: the serving kernels
-     (fused bottleneck, upsample+add, peak decode) and the training
-     kernels (upsample backward at every decoder shape, the 2x2 max-pool
-     forward and backward at the stem and hourglass shapes with planted
-     ties, the Gaussian target render with joints on the edges, off the
-     map and at weight 0);
+     call computes the same function, that call: the fused bottleneck under
+     both schedules (the cluster kernel, impl 'image', and the row-tile
+     kernel, impl 'chunked', held bit-equal to each other; their cluster
+     shape, shared memory and resident clusters, and their times weighted
+     by one forward's launches at each shape), upsample+add, peak decode,
+     and the training kernels (upsample backward at every decoder shape,
+     the 2x2 max-pool forward and backward at the stem and hourglass
+     shapes with planted ties, the Gaussian target render with joints on
+     the edges, off the map and at weight 0);
   4. the serving path: the flagship 8-stack hourglass of
      configs/train_mpii_8stack.yaml with seeded weights, built by
      serve_http.build_inference into a frames -> keypoints function
@@ -25,8 +28,8 @@ failure):
      upsample+add, the pool kernel, peak decode) behind MicroBatcher
      (batch 64) and the HTTP server on 127.0.0.1, answering 256 POSTed
      uint8 256x256 frames from 4 client processes of 16 connections each;
-     every reply is checked; launch counts 65 bottleneck, 32 upsample,
-     33 pool and 1 decode launch per batch;
+     every reply is checked; launch counts 65 bottleneck (DEFAULT_IMPL),
+     32 upsample, 33 pool and 1 decode launch per batch;
   5. the serving heatmaps of the kernel path against the same weights
      with the kernels switched off (card, bf16), and against an f32 run
      of the plain path on the CPU for two frames; latency and throughput;
@@ -39,14 +42,23 @@ failure):
      run-to-run noise), 3 warm-up and 10 timed steps (loss of every
      step, step ms p50, img/s, peak memory), 32 + 32 upsample, 33 + 33
      pool and 1 render launch per step;
-  7. the eval step on the same batch (65 bottleneck, 32 upsample, 33 pool,
-     1 render launch), its loss against the kernels off;
+  7. the eval step on the same batch under each bottleneck schedule (65
+     launches of that schedule's kernel, 32 upsample, 33 pool, 1 render;
+     the two schedules' losses and heatmaps equal), its loss against the
+     kernels off;
   8. the frozen-BN train step with the fused bottleneck, 2 steps against
      the same 2 steps with the kernels off (loss of each step), 65
      bottleneck launches and 65 backward calls of its autograd Function
      per step, gradients reaching a fused block's BN and conv parameters;
-  9. the `kernels` JSON line (launches summed over the main paths of
-     phases 4 and 6-8), then the result line.
+  9. the trainer entry point: `train_and_evaluate.main()` on the flagship
+     config with synthetic data, 3 epochs of 4 steps at batch 32, BN
+     frozen from epoch 3, a snapshot every epoch; each epoch's launches
+     checked exactly, every value finite, the loss falling, checkpoint_1..3
+     and best written; then `main()` resumed from checkpoint_2 restores
+     every tensor exactly, step 8 and its learning rate, and runs only
+     epoch 3;
+ 10. the `kernels` JSON line (launches summed over the main paths of
+     phases 4 and 6-9), then the result line.
 --profile adds torch.profiler breakdowns (by kernel, by launching
 PyTorch op, by kind) of one serving batch and of one train step, and the
 serving front end's rate alone.
@@ -87,6 +99,10 @@ PEAK_BYTES = 3.35e12
 # The bottleneck is held on its residual branch, out - x (what the kernel
 # computes; read at ~5e-4 on an H100), and on the whole output.
 TOL_BOTTLENECK = 1e-2
+# fused bottleneck launches of one flagship forward at each image side (the
+# eligible blocks: layer3 and per stack up1_l4 and res at 64^2, low1_l4,
+# up1_l3 and low3_l4 at 32^2, low1_l3, up1_l2 and low3_l3 at 16^2)
+BOTTLENECK_LAUNCHES_PER_FORWARD = {64: 17, 32: 24, 16: 24}
 # kernel path vs the path with the kernels off (both bf16 on the card):
 # the unfused blocks round each conv output to bf16 where the kernel
 # keeps f32, so the two differ by bf16 noise through 8 stacks (read at
@@ -128,6 +144,18 @@ TOL_EVAL_LOSS = 2e-3
 # decays (2.5e-5), where the trainer freezes BN late in training.
 TOL_FROZEN_LOSS = (7e-3, 7e-3)
 TOL_FROZEN_GRAD = 1.6e-2
+# the trainer phase: the CLI on the flagship config, synthetic data, three
+# epochs of four steps, BN frozen from epoch 3 on, a snapshot every epoch,
+# at the flagship schedule's rate past both decays (2.5e-5), where a run
+# freezes BN late in training. At its base rate (2.5e-3) RMSprop's first
+# update moves every weight by lr * 10 = 0.025 and running averages of 8
+# steps cannot follow: on an H100 the first validation's loss read inf and
+# the frozen epoch's 6e17 (both packages compute the same math).
+FREEZE_BN_AFTER = 2
+TRAINER_OVERRIDES = ['DATASET.name=synthetic', 'DATASET.num_samples=128',
+                     'TRAIN.epochs=3', 'TRAIN.steps_per_epoch=4',
+                     f'TRAIN.freeze_bn_after_epoch={FREEZE_BN_AFTER}', 'COMMON.snapshot=1',
+                     'TRAIN.learning_rate=2.5e-5']
 
 
 def fail(msg: str) -> None:
@@ -190,57 +218,90 @@ def randomize_bn_(model, gen) -> None:
                 m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
 
 
+def bottleneck_impls() -> dict:
+    from hourglass_pose_estimation_torch.ops.hopper import (
+        fused_bottleneck_chunked, fused_bottleneck_image)
+    return {'image': fused_bottleneck_image, 'chunked': fused_bottleneck_chunked}
+
+
 def kernel_phases(seed: int):
     """Each kernel vs its plain version at the serving path's shapes."""
+    BOTTLENECK_IMPLS = bottleneck_impls()
     import torch
     from hourglass_pose_estimation_torch.models.modules import Bottleneck
     from hourglass_pose_estimation_torch.ops.hopper import (
-        bottleneck_reference, decode_peaks, decode_peaks_reference,
-        fused_bottleneck, upsample2x_add, upsample2x_add_reference)
+        _build, bottleneck_reference, decode_peaks, decode_peaks_reference,
+        upsample2x_add, upsample2x_add_reference)
+    from hourglass_pose_estimation_torch.ops.hopper import bottleneck as bk
 
     dev = torch.device('cuda')
     gen = torch.Generator().manual_seed(seed)
     torch.manual_seed(seed)
     rows = []
 
-    # --- fused bottleneck: 64 images at 64^2, 32^2, 16^2, C=256, P=128
+    # --- fused bottleneck, both schedules: 64 images at 64^2, 32^2, 16^2,
+    # C=256, P=128; each against the plain version and against each other
     blk = Bottleneck(256, 128, fuse_block=True)
     randomize_bn_(blk, gen)
     prm = blk.to(dev).fused_params()
-    per_shape = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.library()
+    per_shape, at64 = {}, {}
     for hw in (64, 32, 16):
         x = torch.randn(BATCH, hw, hw, 256, generator=gen).to(dev, torch.bfloat16)
-        got = fused_bottleneck(x, prm)
         ref = bottleneck_reference(x, prm)
+        outs = {impl: fn(x, prm) for impl, fn in BOTTLENECK_IMPLS.items()}
         torch.cuda.synchronize()
-        err = rel_l2(got, ref)
-        branch = rel_l2(got.float() - x.float(), ref.float() - x.float())
-        check(bool(torch.isfinite(got.float()).all()), f'bottleneck {hw}^2 not finite')
-        check(err <= TOL_BOTTLENECK, f'bottleneck {hw}^2 rel L2 {err:.3e} > {TOL_BOTTLENECK}')
-        check(branch <= TOL_BOTTLENECK,
-              f'bottleneck {hw}^2 branch rel L2 {branch:.3e} > {TOL_BOTTLENECK}')
+        tr, r = bk.image_schedule(BATCH, hw, hw, sms)
         npix = BATCH * hw * hw
         flops = 2.0 * npix * (256 * 128 * 2 + 9 * 128 * 128)
         nbytes = 2.0 * npix * 256 * 2 + 2 * (256 * 128 * 2 + 9 * 128 * 128) + 4 * (3 * 256 + 6 * 128)
         b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16)
-        per_shape[hw] = dict(
-            hw=hw, rel_l2=err, rel_l2_branch=branch,
-            max_abs_err=float((got.float() - ref.float()).abs().max()),
-            ms=time_ms(lambda: fused_bottleneck(x, prm), 20),
-            plain_ms=time_ms(lambda: bottleneck_reference(x, prm), 5),
-            bound_ms=b_ms, bound_by=b_by, tflops=flops / 1e9)
-        per_shape[hw]['tflops'] = flops / per_shape[hw]['ms'] / 1e9
-        print(f'bottleneck {hw}x{hw}: ' + json.dumps(per_shape[hw]), flush=True)
-        del x, got, ref
+        entry = dict(hw=hw, image_TR=tr, image_R=r,
+                     image_smem_bytes=lib.hpe_bottleneck_smem_bytes(hw, tr),
+                     image_max_active_clusters=bk.max_active_clusters(hw, tr, r, dev.index or 0),
+                     chunked_TR=bk.rows_per_block(BATCH, hw, hw, sms),
+                     image_equals_chunked=bool(torch.equal(outs['image'], outs['chunked'])),
+                     bound_ms=b_ms, bound_by=b_by)
+        for impl, got in outs.items():
+            err = rel_l2(got, ref)
+            branch = rel_l2(got.float() - x.float(), ref.float() - x.float())
+            check(bool(torch.isfinite(got.float()).all()), f'bottleneck {impl} {hw}^2 not finite')
+            check(err <= TOL_BOTTLENECK, f'bottleneck {impl} {hw}^2 rel L2 {err:.3e} > {TOL_BOTTLENECK}')
+            check(branch <= TOL_BOTTLENECK,
+                  f'bottleneck {impl} {hw}^2 branch rel L2 {branch:.3e} > {TOL_BOTTLENECK}')
+            fn = BOTTLENECK_IMPLS[impl]
+            entry.update({f'{impl}_rel_l2': err, f'{impl}_rel_l2_branch': branch,
+                          f'{impl}_max_abs_err': float((got.float() - ref.float()).abs().max()),
+                          f'{impl}_ms': time_ms(lambda: fn(x, prm), 20)})
+            entry[f'{impl}_tflops'] = flops / entry[f'{impl}_ms'] / 1e9
+        entry['plain_ms'] = time_ms(lambda: bottleneck_reference(x, prm), 5)
+        per_shape[hw] = entry
+        print(f'bottleneck {hw}x{hw}: ' + json.dumps(entry), flush=True)
+        check(entry['image_equals_chunked'],
+              f'bottleneck {hw}^2: the image and chunked kernels differ')
+        if hw == 64:
+            at64 = dict(outs, ref=ref)
+        del x, ref, outs
+    # the schedule one forward of the flagship should default to: each
+    # shape's time weighted by its launches in one forward
+    per_forward = {impl: sum(n * per_shape[hw][f'{impl}_ms']
+                             for hw, n in BOTTLENECK_LAUNCHES_PER_FORWARD.items())
+                   for impl in BOTTLENECK_IMPLS}
+    print(f'bottleneck per forward (launches {BOTTLENECK_LAUNCHES_PER_FORWARD}): '
+          + ', '.join(f'{impl} {ms:.3f} ms' for impl, ms in per_forward.items())
+          + f'; faster: {min(per_forward, key=per_forward.get)}; '
+          f'DEFAULT_IMPL {bk.DEFAULT_IMPL!r}', flush=True)
     s = per_shape[64]
-    x = torch.randn(BATCH, 64, 64, 256, generator=gen).to(dev, torch.bfloat16)
-    got, ref = fused_bottleneck(x, prm), bottleneck_reference(x, prm)
-    rows.append(kernel_row(
-        'fused_bottleneck', 'bottleneck.cu', 'bottleneck.py:259', got, ref,
-        s['ms'], s['plain_ms'], (s['bound_ms'], s['bound_by']), None,
-        shape='[64,64,64,256] bf16', rel_l2=s['rel_l2'],
-        library='none: no one PyTorch call computes the whole block'))
-    del x, got, ref
+    for impl, replaces in (('image', 'bottleneck.py:259'), ('chunked', 'bottleneck.py:207')):
+        rows.append(kernel_row(
+            f'fused_bottleneck_{impl}', 'bottleneck.cu', replaces, at64[impl], at64['ref'],
+            s[f'{impl}_ms'], s['plain_ms'], (s['bound_ms'], s['bound_by']), None,
+            shape='[64,64,64,256] bf16', rel_l2=s[f'{impl}_rel_l2'],
+            ms_by_hw={hw: e[f'{impl}_ms'] for hw, e in per_shape.items()},
+            per_forward_ms=per_forward[impl],
+            library='none: no one PyTorch call computes the whole block'))
+    del at64
 
     # --- upsample + add: low [64,32,32,256] -> [64,64,64,256], plus H=12
     for (b, h, c) in ((2, 12, 256), (BATCH, 32, 256)):
@@ -498,6 +559,13 @@ def read_counts() -> dict:
     return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
 
 
+def fused_name(impl: str = None) -> str:
+    """The launch counter of the fused bottleneck's `impl` schedule
+    (DEFAULT_IMPL, the one the model's blocks run, when None)."""
+    from hourglass_pose_estimation_torch.ops.hopper import bottleneck as bk
+    return f'fused_bottleneck_{impl or bk.DEFAULT_IMPL}'
+
+
 def expect_counts(got: dict, what: str, **want) -> None:
     full = {name: want.get(name, 0) for name in got}
     check(got == full, f'{what}: launch counts {got} != {full}')
@@ -610,29 +678,53 @@ def train_phase(seed: int, raw, spec, batch: int, paths: dict):
 
 def eval_phase(state, raw, spec, batch: int, paths: dict) -> dict:
     """The eval step on the fixed batch: running-average BN, so the fused
-    bottleneck runs."""
+    bottleneck runs; once under each schedule (DEFAULT_IMPL switched),
+    whose losses and heatmaps must be equal, and once with the kernels
+    off."""
     import numpy as np
     import torch
+    from hourglass_pose_estimation_torch.data import augment_batch, sample_augmentations, to_device
+    from hourglass_pose_estimation_torch.ops.hopper import bottleneck as bk
     from hourglass_pose_estimation_torch.runner import TrainState, make_eval_step
     eval_step = make_eval_step(spec, device_pipeline=True)
-    eval_step(state, raw, np.ones(batch, np.float32))        # warm-up
-    torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    m = eval_step(state, raw, np.ones(batch, np.float32))
-    loss, acc = float(m['loss']), float(m['acc'])
-    ms = (time.perf_counter() - t0) * 1e3
-    paths['eval'] = launches = read_counts()
-    expect_counts(launches, 'eval step', fused_bottleneck=65, upsample2x_add=32,
-                  maxpool2x2_fwd=33, render_gaussian=1)
-    check(np.isfinite(loss) and np.isfinite(acc), f'eval: loss {loss}, acc {acc}')
+    valid = np.ones(batch, np.float32)
+    data = to_device(raw, 'cuda')
+    image = augment_batch(data, sample_augmentations(
+        None, data['scale'], scale_factor=0, rot_factor=0, train=False), spec, False)['image']
+    default = bk.DEFAULT_IMPL
+    out, heatmaps = {}, {}
+    try:
+        for impl in (default,) + tuple(i for i in bk.IMPLS if i != default):
+            bk.DEFAULT_IMPL = impl
+            eval_step(state, raw, valid)                      # warm-up
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            m = eval_step(state, raw, valid)
+            loss, acc = float(m['loss']), float(m['acc'])
+            ms = (time.perf_counter() - t0) * 1e3
+            paths[f'eval_{impl}'] = launches = read_counts()
+            expect_counts(launches, f'eval step ({impl})', **{fused_name(impl): 65},
+                          upsample2x_add=32, maxpool2x2_fwd=33, render_gaussian=1)
+            check(np.isfinite(loss) and np.isfinite(acc), f'eval ({impl}): loss {loss}, acc {acc}')
+            out[impl] = dict(loss=loss, acc=acc, step_ms=ms)
+            with torch.no_grad():
+                heatmaps[impl] = state.model(image, train=False)
+    finally:
+        bk.DEFAULT_IMPL = default
+    a, b = bk.IMPLS
+    check(out[a]['loss'] == out[b]['loss'] and out[a]['acc'] == out[b]['acc'],
+          f'eval: the schedules give other metrics: {out}')
+    check(torch.equal(heatmaps[a], heatmaps[b]), 'eval: the schedules give other heatmaps')
+    del heatmaps
     # the same step with the kernels off, from the same state
     off = TrainState(model=set_switches(copy.deepcopy(state.model), False),
                      tx=state.tx, optimizer=state.optimizer, step=state.step)
-    loss_off = float(eval_step(off, raw, np.ones(batch, np.float32))['loss'])
+    loss_off = float(eval_step(off, raw, valid)['loss'])
+    loss = out[default]['loss']
     d_loss = abs(loss - loss_off) / abs(loss_off)
     del off
-    out = dict(loss=loss, acc=acc, step_ms=ms, loss_kernels_off=loss_off, loss_rel=d_loss)
+    out.update(loss_kernels_off=loss_off, loss_rel=d_loss, heatmaps_equal=True)
     print(f'eval: {json.dumps(out)} (tol loss {TOL_EVAL_LOSS})', flush=True)
     check(d_loss <= TOL_EVAL_LOSS, f'eval: loss kernels on vs off rel {d_loss:.3e}')
     return out
@@ -689,7 +781,7 @@ def frozen_phase(state, raw, spec, seed: int, paths: dict) -> dict:
         del off
     paths['frozen'] = {k: counts[0][k] + counts[1][k] for k in counts[0]}
     for i, c in enumerate(counts):
-        expect_counts(c, f'frozen step {i + 1}', fused_bottleneck=65, upsample2x_add=32,
+        expect_counts(c, f'frozen step {i + 1}', **{fused_name(): 65}, upsample2x_add=32,
                       upsample2x_add_bwd=32, maxpool2x2_fwd=33, maxpool2x2_bwd=33,
                       render_gaussian=1)
     after = [t for m in on.model.modules() if isinstance(m, BatchNorm)
@@ -705,6 +797,151 @@ def frozen_phase(state, raw, spec, seed: int, paths: dict) -> dict:
         check(all(abs(v) < float('inf') for v in losses[i]), f'frozen step {i + 1}: loss not finite')
         check(r <= tol, f'frozen step {i + 1}: loss kernels on vs off rel {r:.3e} > {tol}')
     check(grads[0] <= TOL_FROZEN_GRAD, f'frozen step 1: gradients on vs off {grads[0]:.3e}')
+    return out
+
+
+def trainer_phase(paths: dict) -> dict:
+    """The trainer entry point at full width: `train_and_evaluate.main()` on
+    configs/train_mpii_8stack.yaml (8 stacks, 256^2 -> 64^2, bf16, train and
+    val batch 32, MODEL.fuse_block on) with TRAINER_OVERRIDES and its
+    checkpoints in a temporary directory, then a second `main()` resumed
+    from checkpoint_2. The Trainer is the CLI's own, instrumented to count
+    the launches of each train epoch and each validation pass."""
+    import tempfile
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch import train_and_evaluate as tae
+    from hourglass_pose_estimation_torch.ops.hopper import fused_bottleneck
+    from hourglass_pose_estimation_torch.runner.trainer import Trainer
+
+    runs = []
+
+    class CountingTrainer(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.counts, self.resumed, self.produce_s = [], None, 0.0
+            runs.append(self)
+            if self.cfg.common.resume:
+                self.resumed = self._against_checkpoint(self.cfg.common.resume)
+
+        def _against_checkpoint(self, path: str) -> dict:
+            saved = torch.load(path, map_location=self.device, weights_only=True)
+            model = self.state.model.state_dict()
+            opt, sopt = self.state.optimizer.state_dict(), saved['optimizer']
+            opt_equal = all(
+                torch.equal(v, sopt['state'][i][k]) if isinstance(v, torch.Tensor)
+                else v == sopt['state'][i][k]
+                for i, st in opt['state'].items() for k, v in st.items())
+            return dict(
+                start_epoch=self.start_epoch, step=self.state.step,
+                lr=self.state.tx.lr(self.state.step), best_acc=self.best_acc,
+                saved_step=saved['step'], saved_best_acc=saved['best_acc'],
+                model_tensors=len(model),
+                model_equal=model.keys() == saved['model'].keys() and all(
+                    torch.equal(v, saved['model'][k]) for k, v in model.items()),
+                optimizer_tensors=sum(len(st) for st in opt['state'].values()),
+                optimizer_equal=(len(opt['state']) == len(sopt['state']) > 0 and opt_equal))
+
+        def _make_produce(self, ds, with_valid=False):
+            """The producer thread's seconds (host packing and the copy's
+            dispatch) add up in `self.produce_s`."""
+            produce = super()._make_produce(ds, with_valid)
+
+            def timed(item):
+                t0 = time.perf_counter()
+                try:
+                    return produce(item)
+                finally:
+                    self.produce_s += time.perf_counter() - t0
+            return timed
+
+        def _train_epoch(self, epoch, rng):
+            zero_counts()
+            self.produce_s = 0.0
+            out = super()._train_epoch(epoch, rng)
+            counts = read_counts()
+            self.counts.append(dict(train=counts, backward_calls=fused_bottleneck.backward_calls,
+                                    train_produce_s=self.produce_s))
+            return out
+
+        def _evaluate(self):
+            zero_counts()
+            out = super()._evaluate()
+            self.counts[-1]['val'] = read_counts()
+            return out
+
+    cfg_path = str(REPO / 'configs' / 'train_mpii_8stack.yaml')
+    out = {}
+    saved_trainer = tae.Trainer
+    tae.Trainer = CountingTrainer
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            overrides = TRAINER_OVERRIDES + [f'COMMON.checkpoint_dir={tmp}']
+            t0 = time.time()
+            check(tae.main([cfg_path] + overrides) == 0, 'trainer: main() failed')
+            out['run_s'] = time.time() - t0
+            ckpts = next(Path(tmp).glob('*/ckpts'))
+            written = sorted(p.name for p in ckpts.iterdir())
+            t0 = time.time()
+            check(tae.main([cfg_path] + overrides
+                           + [f'COMMON.resume={ckpts / "checkpoint_2"}']) == 0,
+                  'trainer: resumed main() failed')
+            out['resume_run_s'] = time.time() - t0
+    finally:
+        tae.Trainer = saved_trainer
+    out['max_memory_allocated_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(runs) == 2, f'trainer: {len(runs)} Trainers built, not 2')
+    first, resumed = runs
+    steps = first.steps_per_epoch
+    check(steps == 4 and first.val_loader.batch_size == 32 and len(first.val_loader) == 4,
+          f'trainer: {steps} steps, val batches {len(first.val_loader)}')
+
+    # launches, worked out from the code: per train step 32 + 32 upsample,
+    # 33 + 33 pool and 1 render; per validation batch 65 fused bottlenecks,
+    # 32 upsample, 33 pool and 1 render; the frozen epoch adds 65 fused
+    # bottleneck forwards and 65 backward calls of its Function per step
+    per_step = dict(upsample2x_add=32, upsample2x_add_bwd=32, maxpool2x2_fwd=33,
+                    maxpool2x2_bwd=33, render_gaussian=1)
+    per_val = {fused_name(): 65, 'upsample2x_add': 32, 'maxpool2x2_fwd': 33,
+               'render_gaussian': 1}
+    total = {}
+    epochs = [(run, h, c) for run in runs for h, c in zip(run.history, run.counts)]
+    for run, h, c in epochs:
+        frozen = h['epoch'] > FREEZE_BN_AFTER
+        want = dict(per_step, **({fused_name(): 65} if frozen else {}))
+        expect_counts(c['train'], f"trainer epoch {h['epoch']} train",
+                      **{k: v * steps for k, v in want.items()})
+        check(c['backward_calls'] == (65 * steps if frozen else 0),
+              f"trainer epoch {h['epoch']}: {c['backward_calls']} backward calls")
+        expect_counts(c['val'], f"trainer epoch {h['epoch']} val",
+                      **{k: v * len(run.val_loader) for k, v in per_val.items()})
+        for k in c['train']:
+            total[k] = total.get(k, 0) + c['train'][k] + c['val'][k]
+        check(all(np.isfinite(v) for v in h.values()), f'trainer: not finite: {h}')
+        print('trainer epoch: ' + json.dumps(dict(h, resumed=run is resumed, launches_train=c['train'],
+                                                  launches_val=c['val'],
+                                                  fused_backward_calls=c['backward_calls'],
+                                                  train_produce_s=c['train_produce_s'])),
+              flush=True)
+    paths['trainer'] = total
+    check([h['epoch'] for h in first.history] == [1, 2, 3],
+          f"trainer: epochs {[h['epoch'] for h in first.history]}")
+    check(first.history[2]['train_loss'] < first.history[0]['train_loss'],
+          'trainer: epoch 3 train loss not below epoch 1: '
+          f"{[h['train_loss'] for h in first.history]}")
+    check(written == ['best', 'checkpoint_1', 'checkpoint_2', 'checkpoint_3'],
+          f'trainer: checkpoints {written}')
+    r = resumed.resumed
+    check(r['start_epoch'] == 2 and [h['epoch'] for h in resumed.history] == [3],
+          f"trainer resume: start {r['start_epoch']}, epochs {[h['epoch'] for h in resumed.history]}")
+    check(r['model_equal'] and r['optimizer_equal'],
+          f"trainer resume: tensors differ from checkpoint_2: {r}")
+    check(r['step'] == r['saved_step'] == 2 * steps and r['lr'] == first.tx.lr(2 * steps)
+          and r['best_acc'] == r['saved_best_acc'], f'trainer resume: {r}')
+    out.update(resume=r, best_acc=first.best_acc, checkpoints=written,
+               losses=[h['train_loss'] for h in first.history])
+    print('trainer: ' + json.dumps(out), flush=True)
     return out
 
 
@@ -849,7 +1086,7 @@ def main(argv=None) -> int:
           f'launches {launches}', flush=True)
 
     # 5. launch counts of the main path
-    expect_counts(launches, f'serving, {nb} batches', fused_bottleneck=65 * nb,
+    expect_counts(launches, f'serving, {nb} batches', **{fused_name(): 65 * nb},
                   upsample2x_add=32 * nb, maxpool2x2_fwd=33 * nb, decode_peaks=nb)
 
     # 6. kernel path vs kernels off (card) and vs f32 plain on the CPU
@@ -924,14 +1161,20 @@ def main(argv=None) -> int:
         step = make_train_step(spec, device_pipeline=True)
         profile_block(lambda: step(state, raw, args.seed), f'train step, batch {TRAIN_BATCH}',
                       train['step_ms_p50'], top=24)
+    del state
+    torch.cuda.empty_cache()
 
-    # 9. the kernels, with their launches on the main paths
+    # 9. the trainer entry point, with snapshots and a resumed run
+    trainer = trainer_phase(paths)
+
+    # 10. the kernels, with their launches on the main paths
     for r in rows:
         r['launches'] = sum(p[r['name']] for p in paths.values())
         r['launches_by_path'] = {k: p[r['name']] for k, p in paths.items()}
         check(r['launches'] > 0, f"{r['name']} not launched on the main paths")
     print(f'card: {card}; train step p50 {train["step_ms_p50"]:.2f} ms, '
-          f'{train["images_per_s"]:.1f} img/s at batch {TRAIN_BATCH}', flush=True)
+          f'{train["images_per_s"]:.1f} img/s at batch {TRAIN_BATCH}; trainer '
+          f'{trainer["run_s"]:.1f} s for 3 epochs', flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.time() - t_start:.1f} s', flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

@@ -2,9 +2,12 @@
 
 Parses the same YAML sections and keys as `hourglass_pose_estimation_tpu/
 config.py` (DATASET / MODEL / TRAIN / COMMON / EVAL, `SECTION.key=value`
-overrides), so one config file drives both packages. Keys that only
-training or multi-chip runs read are not in this copy yet (the loader
-warns and ignores them). One default differs: MODEL.fuse_block is on.
+overrides), so one config file drives both packages: every key of the JAX
+package, with its default and validation. Keys that ask for what the port
+has not got yet (several devices, the host cv2 pipeline, the standalone
+evaluator) parse here and are refused, with the ROADMAP item that brings
+them, by the entry point that would read them. One default differs:
+MODEL.fuse_block is on.
 """
 
 from __future__ import annotations
@@ -37,7 +40,14 @@ class DatasetConfig:
     scale_factor: float = 0.25
     rot_factor: float = 30.0
     label_type: str = 'Gaussian'
+    device_pipeline: bool = True   # augment + render targets on device
     num_samples: int = 512         # synthetic dataset size
+    # device-pipeline canvas: side in px (0 -> max(inp_res, 64)) and
+    # packing mode: 'crop' packs the person's reachable crop region at
+    # native resolution where it fits (downscaled where it does not),
+    # 'image' scales the whole source image into the canvas.
+    canvas: int = 0
+    canvas_mode: str = 'crop'
 
     def __post_init__(self):
         if self.label_type != 'Gaussian':
@@ -45,6 +55,8 @@ class DatasetConfig:
                              '(parity: common.py:206-207)')
         if self.inp_res % self.out_res != 0:
             raise ValueError('inp_res must be a multiple of out_res')
+        if self.canvas_mode not in ('crop', 'image'):
+            raise ValueError("canvas_mode must be 'crop' or 'image'")
 
 
 @dataclass(frozen=True)
@@ -89,10 +101,28 @@ class TrainConfig:
     data_parallel: int = 0         # 0 -> all devices
     model_parallel: int = 1
     steps_per_epoch: int = 0       # 0 -> full dataset
+    # the explicit-collectives train step (several devices); sync_bn=False
+    # keeps per-replica BatchNorm statistics there
+    explicit_collectives: bool = False
+    sync_bn: bool = True
+    # per-hourglass rematerialization (activation memory <-> ~1/3 fwd FLOPs)
+    remat: bool = False
+    # pipeline parallelism over hourglass stacks: size of the 'pipe' axis
+    # (1 = off) and microbatches per step
+    pipeline_parallel: int = 1
+    microbatches: int = 2
+    # BN batch statistics from the first k samples only (0 = full batch)
+    bn_stat_samples: int = 0
+    # freeze BatchNorm from this epoch on (0 = never): the train forward
+    # switches to running-average statistics (and so to the fused
+    # bottleneck) and the statistics stop moving
+    freeze_bn_after_epoch: int = 0
 
     def __post_init__(self):
         if self.precision not in ('bf16', 'f32'):
             raise ValueError("precision must be 'bf16' or 'f32'")
+        if self.explicit_collectives and self.model_parallel > 1:
+            raise ValueError('explicit_collectives requires model_parallel=1')
 
 
 @dataclass(frozen=True)
@@ -136,6 +166,10 @@ class CommonConfig:
     dataset: str = ''
     in_res: int = 256
     out_res: int = 64
+    # NMS peak decode + skeleton-line rendering instead of circles
+    skeleton: bool = False
+    # fuse /255 + resize + normalize into the device forward (raw uint8 in)
+    device_preprocess: bool = False
 
 
 @dataclass(frozen=True)

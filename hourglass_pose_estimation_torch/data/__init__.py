@@ -1,7 +1,11 @@
 """Host data of the port: normalisation statistics, joint counts, the
-synthetic dataset and the device augmentation pipeline."""
+dataset registry (importing this package registers the synthetic
+dataset), the epoch loader, the prefetcher and the device augmentation
+pipeline."""
 
-from hourglass_pose_estimation_torch.data.common import PoseDataset, PoseRecords
+from hourglass_pose_estimation_torch.data.common import (
+    REGISTRY, Loader, PoseDataset, PoseRecords, get_dataset, register)
+from hourglass_pose_estimation_torch.data.prefetch import Prefetcher
 from hourglass_pose_estimation_torch.data.meanstd import MEANSTD, get_meanstd
 from hourglass_pose_estimation_torch.data.pipeline import (
     PipelineSpec, augment_batch, make_spec, sample_augmentations, to_device)

@@ -45,8 +45,9 @@ class PipelineSpec(NamedTuple):
     std: Tuple[float, float, float]
 
 
-def make_spec(dataset) -> PipelineSpec:
-    """A PipelineSpec from a PoseDataset."""
+def make_spec(dataset, train_cfg=None) -> PipelineSpec:
+    """A PipelineSpec from a PoseDataset (`train_cfg` is accepted and
+    unused, as in the JAX package)."""
     return PipelineSpec(
         inp_res=dataset.inp_res, out_res=dataset.out_res, sigma=dataset.sigma,
         scale_factor=dataset.scale_factor, rot_factor=dataset.rot_factor,
@@ -73,9 +74,10 @@ def sample_augmentations(gen, scales: torch.Tensor, *, scale_factor: float,
 
 
 def to_device(batch, device) -> dict:
-    """A canvas batch (numpy arrays) as tensors on `device` (copies: the
-    arrays may be read-only views)."""
-    return {k: torch.from_numpy(np.array(v, order='C')).to(device)
+    """A canvas batch (numpy arrays, or tensors already staged) as tensors
+    on `device` (numpy arrays are copied: they may be read-only views)."""
+    return {k: v.to(device) if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.array(v, order='C')).to(device)
             for k, v in batch.items()}
 
 

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from hourglass_pose_estimation_torch.data.common import PoseDataset, PoseRecords
+from hourglass_pose_estimation_torch.data.common import (
+    PoseDataset, PoseRecords, register)
 
 _SKELETON = [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (6, 7), (7, 8),
              (8, 9), (10, 11), (11, 12), (12, 13), (13, 14), (14, 15)]
@@ -52,6 +53,7 @@ def _make_sample(idx: int, res: int, n_joints: int):
     return np.clip(img, 0, 255).astype(np.uint8), joints, vis
 
 
+@register
 class Synthetic(PoseDataset):
     name = 'synthetic'
     n_joints = 16

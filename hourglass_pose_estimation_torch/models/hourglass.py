@@ -17,17 +17,25 @@ Input [B, H, W, 3] (NHWC, any float dtype); output the stacked per-stack
 heatmaps [S, B, H/4, W/4, J] in `out_dtype` (f32). `forward(x, train=True)`
 normalises with batch statistics (from the first `bn_stat_samples`
 samples when set) and updates the running averages.
+
+`remat=True` rematerialises each hourglass in the backward, as
+`nn.remat(Hourglass)` does in the JAX package: its activations are not
+kept, and the backward runs its forward again
+(`torch.utils.checkpoint`, non-reentrant). That second forward moves no
+running average (`norm.running_stats_frozen`), so they move once a step.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.models.modules import (
     Bottleneck, Conv, Hourglass, ResidualChain, max_pool)
-from hourglass_pose_estimation_torch.models.norm import BatchNorm
+from hourglass_pose_estimation_torch.models.norm import (
+    BatchNorm, running_stats_frozen)
 
 
 class HourglassNet(nn.Module):
@@ -36,9 +44,10 @@ class HourglassNet(nn.Module):
                  skip_mode: str = 'sum', num_feats: int = 128,
                  dtype=torch.bfloat16, out_dtype=torch.float32,
                  fuse_upsample: bool = False, fuse_block: bool = False,
-                 bn_stat_samples: int = 0):
+                 bn_stat_samples: int = 0, remat: bool = False):
         super().__init__()
         self.num_stacks = num_stacks
+        self.remat = remat
         self.compute_dtype, self.out_dtype = dtype, out_dtype
         self.fuse_upsample = fuse_upsample     # also routes the stem pool
         ch = num_feats * 2
@@ -79,7 +88,7 @@ class HourglassNet(nn.Module):
         outs = []
         for i in range(self.num_stacks):
             m = lambda name: getattr(self, f'{name}{i}')
-            y = m('res')(m('hg')(x, train), train)
+            y = m('res')(self._hourglass(m('hg'), x, train), train)
             y = torch.relu(m('fc_bn')(m('fc')(y), train)).to(dt)
             score = m('score')(y)
             outs.append(score.to(self.out_dtype).permute(0, 2, 3, 1))
@@ -87,20 +96,33 @@ class HourglassNet(nn.Module):
                 x = x + m('fc_back')(y) + m('score_back')(score)
         return torch.stack(outs, 0)
 
+    def _hourglass(self, hg: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return hg(x, train)
+        runs = []
+
+        def run(x):
+            # the first run is the forward; any later one is the backward's
+            # recomputation, whose statistics updates would be the second
+            with running_stats_frozen(hg, frozen=bool(runs)):
+                runs.append(1)
+                return hg(x, train)
+
+        return checkpoint(run, x, use_reentrant=False)
+
 
 def hg(device='cuda', **kwargs) -> HourglassNet:
     """Factory with the JAX package's kwarg surface (`hg(**kwargs)`),
     built on `device` in channels-last memory format. Accepts and ignores
-    `out_res` like the reference factory. `remat` and `bn_axis_name` must
-    stay at their defaults until their slices."""
+    `out_res` like the reference factory. `bn_axis_name` (cross-device
+    BatchNorm) must stay None until the parallel slice."""
     if kwargs.get('up_channel_num', 256) != 256:
         raise ValueError('arch=hg does not support up_channel_num '
                          '(MSPN decoder width); got '
                          f"{kwargs['up_channel_num']!r}")
-    for key, default in (('remat', False), ('bn_axis_name', None)):
-        if kwargs.get(key, default) != default:
-            raise NotImplementedError(f'hg({key}=...) is not ported yet: '
-                                      'ROADMAP Queue 1')
+    if kwargs.get('bn_axis_name') is not None:
+        raise NotImplementedError('hg(bn_axis_name=...) is not ported yet: '
+                                  'ROADMAP Queue 1 item 13')
     dev = resolve_device(device)
     model = HourglassNet(
         num_stacks=kwargs['num_stacks'],
@@ -112,7 +134,8 @@ def hg(device='cuda', **kwargs) -> HourglassNet:
         dtype=kwargs.get('dtype', torch.bfloat16),
         fuse_upsample=kwargs.get('fuse_upsample', False),
         fuse_block=kwargs.get('fuse_block', False),
-        bn_stat_samples=kwargs.get('bn_stat_samples', 0))
+        bn_stat_samples=kwargs.get('bn_stat_samples', 0),
+        remat=kwargs.get('remat', False))
     return model.to(dev, memory_format=torch.channels_last).eval()
 
 

@@ -15,9 +15,16 @@ two-pass E[(x - mean)^2].
 Not `torch.nn.BatchNorm2d`: its running update uses the unbiased
 variance, and it has no sampled statistics. Cross-device statistics
 (`axis_name`) come with the parallel slice.
+
+`update_stats = False` (see `running_stats_frozen`) keeps the running
+averages as they are in train mode: a rematerialised forward recomputes
+the batch statistics for its backward without moving the averages a
+second time, as the JAX package's functional remat does.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -39,6 +46,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         sdt = torch.promote_types(torch.float32, x.dtype)
@@ -52,12 +60,31 @@ class BatchNorm(nn.Module):
                 var = torch.clamp_min(xs.square().mean(dim=axes) - mean.square(), 0.0)
             else:
                 var = (xs - mean.view(shape)).square().mean(dim=axes)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            if self.update_stats:
+                self._update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = self.weight.to(sdt) * torch.rsqrt(var.to(sdt) + self.eps)
         return ((x.to(sdt) - mean.to(sdt).view(shape))
                 * mul.view(shape) + self.bias.to(sdt).view(shape))
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module, frozen: bool = True):
+    """Within the block, train-mode BatchNorms under `module` leave their
+    running averages as they are (when `frozen`)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.update_stats for m in bns]
+    try:
+        for m in bns:
+            m.update_stats = m.update_stats and not frozen
+        yield
+    finally:
+        for m, v in zip(bns, saved):
+            m.update_stats = v

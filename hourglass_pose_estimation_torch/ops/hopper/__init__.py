@@ -2,11 +2,14 @@
 PyTorch version. A wrapper given CPU tensors runs the plain version; given
 CUDA tensors it launches its kernel or raises. `upsample2x_add`,
 `maxpool2x2` and `fused_bottleneck` are differentiable (autograd
-Functions over the forward and backward wrappers)."""
+Functions over the forward and backward wrappers); `fused_bottleneck` runs
+one of two kernels, `fused_bottleneck_image` or `fused_bottleneck_chunked`
+(`bottleneck.DEFAULT_IMPL` unless the call names one)."""
 
 from hourglass_pose_estimation_torch.ops.hopper.bottleneck import (
     BottleneckParams, bottleneck_backward_reference, bottleneck_reference,
-    fold_bn, fused_bottleneck, params_from_variables)
+    fold_bn, fused_bottleneck, fused_bottleneck_chunked, fused_bottleneck_image,
+    params_from_variables)
 from hourglass_pose_estimation_torch.ops.hopper.decode import (
     decode_peaks, decode_peaks_reference)
 from hourglass_pose_estimation_torch.ops.hopper.pool import (
@@ -19,6 +22,7 @@ from hourglass_pose_estimation_torch.ops.hopper.upsample import (
     upsample2x_add_reference, upsample2x_nearest)
 
 # every kernel's wrapper; each counts its launches in `.launches`
-KERNEL_WRAPPERS = (fused_bottleneck, upsample2x_add, decode_peaks,
+KERNEL_WRAPPERS = (fused_bottleneck_image, fused_bottleneck_chunked,
+                   upsample2x_add, decode_peaks,
                    upsample2x_add_bwd, maxpool2x2_fwd, maxpool2x2_bwd,
                    render_gaussian)

@@ -35,6 +35,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     'hpe_bottleneck_fwd': [_P] * 14 + [_I] * 6 + [_P],
     'hpe_bottleneck_smem_bytes': [_I, _I],
+    'hpe_bottleneck_image_fwd': [_P] * 14 + [_I] * 6 + [_P],
+    'hpe_bottleneck_image_max_clusters': [_I, _I, _I, ctypes.POINTER(_I)],
     'hpe_upsample2x_add': [_P, _P, _P] + [_I] * 6 + [_P],
     'hpe_upsample2x_add_bwd': [_P, _P] + [_I] * 6 + [_P],
     'hpe_maxpool2x2_fwd': [_P, _P] + [_I] * 6 + [_P],

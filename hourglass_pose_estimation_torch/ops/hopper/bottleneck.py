@@ -1,15 +1,20 @@
-"""Fused pre-activation bottleneck (affine BN): Hopper kernel + plain version.
+"""Fused pre-activation bottleneck (affine BN): Hopper kernels + plain version.
 
 Port of `hourglass_pose_estimation_tpu/ops/pallas/bottleneck.py`
 (`BottleneckParams`, `fold_bn`, `params_from_variables`,
-`bottleneck_reference`, the forward kernel `fused_bottleneck_pallas`, and
-the custom VJP `fused_bottleneck` with its explicit backward
-`bottleneck_backward_reference`). The kernel is `csrc/bottleneck.cu`; its
-header says what bounds it and how its design answers that. The backward
-is plain PyTorch ops, as it is XLA in the JAX package.
+`bottleneck_reference`, the forward kernels `fused_bottleneck_pallas` with
+its two schedules, `impl='image'` and `impl='chunked'`, and the custom VJP
+`fused_bottleneck` with its explicit backward
+`bottleneck_backward_reference`). The kernels are `csrc/bottleneck.cu`:
+the image schedule as a thread-block cluster per image
+(`fused_bottleneck_image`), the chunked one as independent row tiles that
+recompute their halo (`fused_bottleneck_chunked`); its header says what
+bounds them and how the design answers that. `DEFAULT_IMPL` picks the
+schedule wherever the caller names none, as in the JAX package. The
+backward is plain PyTorch ops, as it is XLA in the JAX package.
 
 Layouts are the JAX package's: x [B, H, W, C] (NHWC), w1 [C, P],
-w2 [3, 3, P, P] (HWIO), w3 [P, C]. The kernel reads each weight
+w2 [3, 3, P, P] (HWIO), w3 [P, C]. The kernels read each weight
 output-channel-major, which is the TRANSPOSE of those layouts;
 `params_from_variables` stores every weight so that its transpose is a
 contiguous view (`_n_major`), so the kernel path copies nothing per call.
@@ -28,6 +33,16 @@ from hourglass_pose_estimation_torch.ops.hopper import _build
 
 PLANES = 128          # the kernel's bottleneck width
 MAX_SMEM = 232448     # bytes of shared memory one block may use on Hopper
+MAX_CLUSTER = 8       # blocks in a portable thread-block cluster
+IMPLS = ('image', 'chunked')
+# The schedule `fused_bottleneck` runs where the caller names none; read at
+# each call, so setting this module attribute switches every call site, as
+# the JAX package's module-level DEFAULT_IMPL does. 'chunked' from the H100's
+# times at the flagship shapes weighted by the launches of one forward
+# (17 at 64^2, 24 at 32^2, 24 at 16^2; chip_smoke.py prints both sums): at
+# 64^2 a cluster of 8 blocks fits 15 times at once (120 of 132 SMs), so the
+# image schedule takes more waves than the chunked one saves in halo rows.
+DEFAULT_IMPL = 'chunked'
 
 
 class BottleneckParams(NamedTuple):
@@ -108,11 +123,19 @@ def bottleneck_reference(x: torch.Tensor,
     return h3.to(dt) + x
 
 
+def _fill(batch: int, height: int, tr: int, sms: int, ok) -> int:
+    """Halve the row tile tr (while `ok(tr // 2)`) as long as the grid
+    would leave SMs idle."""
+    while batch * (height // tr) < sms - 4 and tr % 2 == 0 and tr > 2 and ok(tr // 2):
+        tr //= 2
+    return tr
+
+
 @functools.lru_cache(maxsize=256)
 def rows_per_block(batch: int, height: int, width: int, sms: int) -> int:
-    """Output rows per CUDA block: the largest divisor of H whose t2
-    window fits in shared memory, halved while the grid would leave SMs
-    idle."""
+    """Output rows per CUDA block of the chunked kernel: the largest divisor
+    of H whose t2 window fits in shared memory, halved while the grid would
+    leave SMs idle."""
     lib = _build.library()
     fits = [d for d in range(1, height + 1)
             if height % d == 0
@@ -120,10 +143,40 @@ def rows_per_block(batch: int, height: int, width: int, sms: int) -> int:
     if not fits:
         raise ValueError(f'bottleneck kernel: width {width} too large for '
                          'shared memory')
-    tr = fits[-1]
-    while batch * (height // tr) < sms - 4 and tr % 2 == 0 and tr > 2:
-        tr //= 2
-    return tr
+    return _fill(batch, height, fits[-1], sms, lambda tr: True)
+
+
+@functools.lru_cache(maxsize=256)
+def image_schedule(batch: int, height: int, width: int, sms: int) -> tuple:
+    """(TR, R) of the cluster kernel: R = H / TR blocks per image, TR the
+    largest divisor of H whose t2 window fits in shared memory with
+    R <= MAX_CLUSTER, halved (R doubled, up to MAX_CLUSTER) while the grid
+    would leave SMs idle, as the chunked kernel's row tile is."""
+    lib = _build.library()
+    ok = lambda d: height // d <= MAX_CLUSTER
+    fits = [d for d in range(1, height + 1)
+            if height % d == 0 and ok(d)
+            and lib.hpe_bottleneck_smem_bytes(width, d) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(
+            f"fused_bottleneck impl='image': no row tile of a {height}x{width} "
+            f'image fits its t2 window in shared memory with at most '
+            f"{MAX_CLUSTER} blocks per cluster; use impl='chunked'")
+    tr = _fill(batch, height, fits[-1], sms, ok)
+    return tr, height // tr
+
+
+@functools.lru_cache(maxsize=64)
+def max_active_clusters(width: int, tr: int, r: int, device: int) -> int:
+    """cudaOccupancyMaxActiveClusters of the cluster kernel at (W, TR, R)
+    on CUDA device `device`."""
+    import ctypes
+    import torch
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_build.library().hpe_bottleneck_image_max_clusters(
+            width, tr, r, ctypes.byref(n)), 'cudaOccupancyMaxActiveClusters')
+    return n.value
 
 
 def _check_cuda(x: torch.Tensor, p: BottleneckParams):
@@ -153,9 +206,17 @@ def _check_cuda(x: torch.Tensor, p: BottleneckParams):
                              'contiguous f32 vector')
 
 
-def _fused_bottleneck_fwd(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
-    """Forward: the kernel for a CUDA tensor (counted in
-    `fused_bottleneck.launches`), `bottleneck_reference` for a CPU one."""
+def _kernel_args(x: torch.Tensor, params: BottleneckParams, out: torch.Tensor):
+    p = params
+    return [t.data_ptr() for t in (x, out, p.a1, p.b1, p.w1, p.c1, p.a2, p.b2,
+                                   p.w2, p.c2, p.a3, p.b3, p.w3, p.c3)]
+
+
+def fused_bottleneck_image(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
+    """Forward, impl 'image': the cluster kernel for a CUDA tensor (counted
+    in `fused_bottleneck_image.launches`), `bottleneck_reference` for a CPU
+    one. Raises ValueError where no cluster of at most MAX_CLUSTER blocks
+    holds the image, or none can be resident on the card."""
     if x.device.type == 'cpu':
         return bottleneck_reference(x, params)
     _check_cuda(x, params)
@@ -163,19 +224,46 @@ def _fused_bottleneck_fwd(x: torch.Tensor, params: BottleneckParams) -> torch.Te
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = _build.library()
-    tr = rows_per_block(B, H, W, _build.num_sms(x))
-    p = params
-    ptr = lambda t: t.data_ptr()
-    err = lib.hpe_bottleneck_fwd(
-        ptr(x), ptr(out), ptr(p.a1), ptr(p.b1), ptr(p.w1), ptr(p.c1),
-        ptr(p.a2), ptr(p.b2), ptr(p.w2), ptr(p.c2),
-        ptr(p.a3), ptr(p.b3), ptr(p.w3), ptr(p.c3),
-        B, H, W, C, PLANES, tr,
-        _build.stream_for(x))
-    _build.check(err, 'fused_bottleneck')
-    fused_bottleneck.launches += 1
+    tr, r = image_schedule(B, H, W, _build.num_sms(x))
+    if max_active_clusters(W, tr, r, x.device.index) < 1:
+        raise ValueError(f"fused_bottleneck impl='image': no cluster of {r} "
+                         f'blocks with {W}-pixel rows fits on this card; use '
+                         "impl='chunked'")
+    err = _build.library().hpe_bottleneck_image_fwd(
+        *_kernel_args(x, params, out), B, H, W, C, PLANES, tr, _build.stream_for(x))
+    _build.check(err, 'fused_bottleneck_image')
+    fused_bottleneck_image.launches += 1
     return out
+
+
+def fused_bottleneck_chunked(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
+    """Forward, impl 'chunked': the row-tile kernel for a CUDA tensor
+    (counted in `fused_bottleneck_chunked.launches`), `bottleneck_reference`
+    for a CPU one."""
+    if x.device.type == 'cpu':
+        return bottleneck_reference(x, params)
+    _check_cuda(x, params)
+    B, H, W, C = x.shape
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    tr = rows_per_block(B, H, W, _build.num_sms(x))
+    err = _build.library().hpe_bottleneck_fwd(
+        *_kernel_args(x, params, out), B, H, W, C, PLANES, tr, _build.stream_for(x))
+    _build.check(err, 'fused_bottleneck_chunked')
+    fused_bottleneck_chunked.launches += 1
+    return out
+
+
+_FORWARD = {'image': fused_bottleneck_image, 'chunked': fused_bottleneck_chunked}
+
+
+def resolve_impl(impl=None) -> str:
+    """`impl`, or DEFAULT_IMPL when it is None; anything else raises."""
+    impl = impl or DEFAULT_IMPL
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be 'image' or 'chunked', got {impl!r}")
+    return impl
 
 
 def bottleneck_backward_reference(x: torch.Tensor, params: BottleneckParams,
@@ -249,29 +337,32 @@ def bottleneck_backward_reference(x: torch.Tensor, params: BottleneckParams,
 
 class _FusedBottleneck(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, *params):
-        p = BottleneckParams(*params)
+    def forward(ctx, x, impl, *params):
         ctx.save_for_backward(x, *params)
-        return _fused_bottleneck_fwd(x, p)
+        return _FORWARD[impl](x, BottleneckParams(*params))
 
     @staticmethod
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
         dx, dp = bottleneck_backward_reference(x, BottleneckParams(*params), g)
         fused_bottleneck.backward_calls += 1
-        return (dx, *dp)
+        return (dx, None, *dp)
 
 
-def fused_bottleneck(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
+def fused_bottleneck(x: torch.Tensor, params: BottleneckParams,
+                     impl: str = None) -> torch.Tensor:
     """Fused bottleneck, x [B, H, W, C] NHWC, identity residual;
     differentiable in x and in every folded parameter.
 
-    Forward: a CPU tensor takes `bottleneck_reference`; a CUDA tensor
-    launches the kernel (counted in `fused_bottleneck.launches`) or
-    raises. Backward: `bottleneck_backward_reference` (plain ops,
-    rematerialising from x), counted in `fused_bottleneck.backward_calls`."""
-    return _FusedBottleneck.apply(x, *params)
+    Forward: `impl` ('image' or 'chunked', DEFAULT_IMPL when None) picks
+    the schedule: a CPU tensor takes `bottleneck_reference` under either; a
+    CUDA tensor launches that schedule's kernel (`fused_bottleneck_image`
+    or `fused_bottleneck_chunked`, each counting its launches) or raises.
+    Backward: `bottleneck_backward_reference` (plain ops, rematerialising
+    from x), counted in `fused_bottleneck.backward_calls`."""
+    return _FusedBottleneck.apply(x, resolve_impl(impl), *params)
 
 
-fused_bottleneck.launches = 0
+fused_bottleneck_image.launches = 0
+fused_bottleneck_chunked.launches = 0
 fused_bottleneck.backward_calls = 0

@@ -1,0 +1,90 @@
+"""Checkpoints of {train state, epoch, best metric}.
+
+Port of `hourglass_pose_estimation_tpu/runner/checkpoint.py` (Orbax there):
+the same payload, the model's parameters and BatchNorm statistics, the
+optimizer state, `step`, `epoch` and `best_acc`, as one `torch.save` file of
+tensors and plain numbers, read back with `torch.load(weights_only=True)`
+(no pickled objects). A save writes a temporary file beside the target and
+renames it over the target, so a crash leaves the last snapshot whole.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+import torch
+
+from hourglass_pose_estimation_torch.runner.train_state import TrainState
+
+
+def save(path: str, state: TrainState, epoch: int, best_acc: float) -> None:
+    """Save state + metadata as the file `path`."""
+    payload = {
+        'model': state.model.state_dict(),
+        'optimizer': state.optimizer.state_dict(),
+        'step': int(state.step),
+        'epoch': int(epoch),
+        'best_acc': float(best_acc),
+    }
+    path = os.path.abspath(path)
+    tmp = f'{path}.tmp{os.getpid()}'
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _load(path: str, device) -> Dict[str, Any]:
+    return torch.load(os.path.abspath(path), map_location=device,
+                      weights_only=True)
+
+
+def _check_optimizer_layout(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    """Raise ValueError unless `saved` (an optimizer state_dict) has this
+    optimizer's parameter groups and per-parameter state shapes:
+    `load_state_dict` checks only the group sizes."""
+    groups = optimizer.param_groups
+    if len(groups) != len(saved['param_groups']):
+        raise ValueError('optimizer has another number of parameter groups')
+    for g, sg in zip(groups, saved['param_groups']):
+        if len(g['params']) != len(sg['params']):
+            raise ValueError('optimizer parameter group of another size')
+        for p, i in zip(g['params'], sg['params']):
+            for name, t in saved['state'].get(i, {}).items():
+                if (isinstance(t, torch.Tensor) and t.dim() > 0
+                        and t.shape != p.shape):
+                    raise ValueError(f'optimizer state {name} of parameter {i}: '
+                                     f'{tuple(t.shape)} != {tuple(p.shape)}')
+
+
+def restore(path: str, state: TrainState) -> Dict[str, Any]:
+    """Restore into `state` (its model and optimizer, in place, on the
+    model's device) -> {'state', 'epoch', 'best_acc'}.
+
+    An optimizer state of another layout (another optimizer, another
+    parameter grouping) gives a fresh optimizer, with the parameters,
+    statistics and step restored and a printed line. A file that does not
+    load, or whose model state does not match, raises its own error."""
+    device = next(state.model.parameters()).device
+    payload = _load(path, device)
+    state.model.load_state_dict(payload['model'])
+    try:
+        _check_optimizer_layout(state.optimizer, payload['optimizer'])
+        state.optimizer.load_state_dict(payload['optimizer'])
+    except (ValueError, KeyError, TypeError) as e:
+        state.optimizer = state.tx.build(list(state.model.parameters()))
+        print('=> checkpoint optimizer layout differs from this run '
+              f'({type(e).__name__}); restored params/stats only '
+              '(fresh optimizer state)', flush=True)
+    state.step = int(payload['step'])
+    return {'state': state, 'epoch': int(payload['epoch']),
+            'best_acc': float(payload['best_acc'])}
+
+
+def restore_params(path: str, device='cpu') -> Dict[str, torch.Tensor]:
+    """Only the model's parameters and BatchNorm statistics (its
+    `state_dict`), for inference-side loading."""
+    return _load(path, device)['model']

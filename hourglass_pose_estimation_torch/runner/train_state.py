@@ -139,7 +139,8 @@ def make_eval_step(spec, *, subset=None, pck_thr=0.5, device_pipeline=True):
     def eval_step(state: TrainState, batch, valid):
         dev = _device_of(state)
         data = to_device(batch, dev)
-        valid = torch.as_tensor(np.asarray(valid), dtype=torch.float32).to(dev)
+        valid = (valid if isinstance(valid, torch.Tensor)
+                 else torch.as_tensor(np.asarray(valid))).to(dev, torch.float32)
         if device_pipeline:
             draws = sample_augmentations(
                 None, data['scale'], scale_factor=spec.scale_factor,

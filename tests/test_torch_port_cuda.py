@@ -18,7 +18,8 @@ from hourglass_pose_estimation_torch.models.hourglass import HourglassNet
 from hourglass_pose_estimation_torch.ops.heatmap import render_preamble
 from hourglass_pose_estimation_torch.ops.hopper import (
     KERNEL_WRAPPERS, bottleneck_backward_reference, bottleneck_reference,
-    decode_peaks, decode_peaks_reference, fused_bottleneck, maxpool2x2,
+    decode_peaks, decode_peaks_reference, fused_bottleneck,
+    fused_bottleneck_chunked, fused_bottleneck_image, maxpool2x2,
     maxpool2x2_bwd, maxpool2x2_bwd_reference, maxpool2x2_fwd,
     maxpool2x2_reference, render_gaussian, render_gaussian_reference,
     upsample2x_add, upsample2x_add_bwd, upsample2x_add_bwd_reference,
@@ -45,18 +46,54 @@ def _rel(a, b):
 
 @pytest.mark.parametrize('shape', [(2, 16, 16), (1, 17, 24), (3, 64, 64)])
 def test_bottleneck_kernel_matches_plain(dev, shape):
+    """Both schedules against the plain version, and against each other:
+    the same products in the same k-order per pixel, so the same bits."""
     torch.manual_seed(0)
     blk = Bottleneck(256, 128).to(dev)
     prm = blk.fused_params()
     x = torch.randn(*shape, 256, device=dev).to(torch.bfloat16)
-    before = fused_bottleneck.launches
-    got = fused_bottleneck(x, prm)
-    assert fused_bottleneck.launches == before + 1
-    # same rounding points; f32 summation order differs. The residual
-    # branch (out - x) is what the kernel computes; x dominates the output
+    ref = bottleneck_reference(x, prm)
+    outs = {}
+    for impl, wrapper in (('image', fused_bottleneck_image),
+                          ('chunked', fused_bottleneck_chunked)):
+        before = wrapper.launches
+        outs[impl] = got = fused_bottleneck(x, prm, impl=impl)
+        assert wrapper.launches == before + 1
+        # same rounding points; f32 summation order differs. The residual
+        # branch (out - x) is what the kernel computes; x dominates the output
+        assert _rel(got.float() - x.float(), ref.float() - x.float()) < 1e-2
+        assert _rel(got, ref) < 1e-2
+    assert torch.equal(outs['image'], outs['chunked'])
+
+
+@pytest.mark.parametrize('shape', [(2, 12, 12), (3, 17, 24), (2, 64, 64), (5, 32, 32)])
+def test_cluster_bottleneck_kernel_matches_chunked_and_plain(dev, shape):
+    """The cluster kernel at H = 12 (an odd row tile, TR 3 and 4 blocks a
+    cluster), H = 17 (prime: one block per image) and at two flagship
+    shapes, bit-equal to the chunked kernel."""
+    from hourglass_pose_estimation_torch.ops.hopper import bottleneck as bk
+    torch.manual_seed(1)
+    prm = Bottleneck(256, 128).to(dev).fused_params()
+    x = torch.randn(*shape, 256, device=dev).to(torch.bfloat16)
+    tr, r = bk.image_schedule(shape[0], shape[1], shape[2],
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert tr * r == shape[1] and 1 <= r <= bk.MAX_CLUSTER
+    got = fused_bottleneck_image(x, prm)
     ref = bottleneck_reference(x, prm)
     assert _rel(got.float() - x.float(), ref.float() - x.float()) < 1e-2
-    assert _rel(got, ref) < 1e-2
+    assert torch.equal(got, fused_bottleneck_chunked(x, prm))
+
+
+def test_cluster_bottleneck_refuses_more_than_eight_blocks(dev):
+    """128 rows of 128 pixels: a t2 window that fits in shared memory holds
+    at most 3 rows, so a cluster would need more than 8 blocks."""
+    prm = Bottleneck(256, 128).to(dev).fused_params()
+    x = torch.zeros(1, 128, 128, 256, device=dev, dtype=torch.bfloat16)
+    before = fused_bottleneck_image.launches
+    with pytest.raises(ValueError, match="impl='chunked'"):
+        fused_bottleneck(x, prm, impl='image')
+    assert fused_bottleneck_image.launches == before
+    assert fused_bottleneck(x, prm, impl='chunked').shape == x.shape
 
 
 @pytest.mark.parametrize('h,c,dtype', [(12, 32, torch.float32),
@@ -196,7 +233,36 @@ def test_small_train_step_launches_the_training_kernels(dev):
     losses = [float(step(state, raw, 0)[1]['loss']) for _ in range(3)]
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
     # per step: 4 merges, 1 stem + 4 encoder pools, 1 render
-    assert counts == dict(fused_bottleneck=0, upsample2x_add=12, decode_peaks=0,
+    assert counts == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
+                          upsample2x_add=12, decode_peaks=0,
                           upsample2x_add_bwd=12, maxpool2x2_fwd=15,
                           maxpool2x2_bwd=15, render_gaussian=3)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_trainer_stages_batches_on_a_side_stream(dev, tmp_path):
+    """The Trainer's producer copies pinned canvases on its copy stream; the
+    consumer's stream waits for that copy, and the tensors equal the host
+    batch. Then one epoch of a 1-stack model runs on the card with the
+    kernels, validation and a snapshot."""
+    from hourglass_pose_estimation_torch.config import load_config
+    from hourglass_pose_estimation_torch.runner import Trainer
+    cfg = load_config(raw={
+        'DATASET': {'name': 'synthetic', 'inp_res': 64, 'out_res': 16, 'num_samples': 8},
+        'MODEL': {'num_stacks': 1},
+        'TRAIN': {'epochs': 1, 'train_batch': 4, 'val_batch': 3, 'learning_rate': 2.5e-5},
+        'COMMON': {'checkpoint_dir': str(tmp_path), 'snapshot': 1}})
+    t = Trainer(cfg, verbose=False, device=dev)
+    raw = t.train_ds.canvas_batch(np.arange(4), canvas=t.canvas, crop_aware=t.crop_aware)
+    staged = t._stage(raw)
+    assert staged[1] is not None and staged[0]['canvas'].device.type == 'cuda'
+    batch = t._take(staged)
+    for k, v in raw.items():
+        assert np.array_equal(batch[k].cpu().numpy(), v), k
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    t.train()
+    h = t.history[0]
+    assert np.isfinite([h['train_loss'], h['val_loss']]).all()
+    assert fused_bottleneck_chunked.launches + fused_bottleneck_image.launches > 0
+    assert (tmp_path / 'ckpts' / 'checkpoint_1').is_file()

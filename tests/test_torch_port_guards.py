@@ -80,6 +80,30 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         serve_http.main([str(cfg), str(tmp_path / 'w.pt')])
 
 
+def test_trainer_and_cli_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """The Trainer and `train_and_evaluate` refuse to start without a GPU
+    (before any dataset is built) unless the CPU is asked for."""
+    from hourglass_pose_estimation_torch import train_and_evaluate
+    from hourglass_pose_estimation_torch.config import load_config
+    from hourglass_pose_estimation_torch.runner import Trainer
+    from hourglass_pose_estimation_torch.runner import trainer as trainer_mod
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    built = []
+    monkeypatch.setattr(trainer_mod, 'get_dataset',
+                        lambda *a, **k: built.append(a) or pytest.fail('dataset built'))
+    cfg_path = tmp_path / 'c.yaml'
+    cfg_path.write_text('MODEL:\n  num_stacks: 1\nDATASET:\n  inp_res: 64\n  out_res: 16\n')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(load_config(str(cfg_path)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_and_evaluate.main([str(cfg_path)])
+    assert not built
+    monkeypatch.undo()
+    t = Trainer(load_config(str(cfg_path), overrides=['DATASET.num_samples=4']),
+                verbose=False, device='cpu')
+    assert next(t.model.parameters()).device.type == 'cpu'
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_cannot_take():
     """A CUDA tensor never reaches the plain version: the checks before a
     launch raise on layouts the kernels do not take (tested here on meta

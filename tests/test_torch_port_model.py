@@ -27,6 +27,14 @@ from hourglass_pose_estimation_torch.weights import (
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope='module')
+def rng():
+    """This file's own seeded stream: the session-wide `rng` of conftest.py
+    is shared by every file a test worker runs, so its draws here would
+    depend on which files ran before."""
+    return np.random.RandomState(0)
+
 MPII_MEANSTD = ((0.406822, 0.444257, 0.466048), (0.228944, 0.232618, 0.236498))
 
 
@@ -134,17 +142,17 @@ def test_fuse_block_gating_matches_jax():
 
 
 def test_train_mode_raises_until_the_training_slice():
-    """Train mode is ported (it runs and moves the running statistics);
-    what waits for later slices still raises: remat, cross-device BN
-    statistics and MSPN."""
+    """Train mode is ported (it runs and moves the running statistics), and
+    so is remat (the trainer slice); what waits for later slices still
+    raises: cross-device BN statistics and MSPN."""
     model = HourglassNet(num_stacks=1, num_classes=4, num_feats=16)
     before = model.bn1.running_var.clone()
     out = model(torch.rand(2, 64, 64, 3), train=True)
     assert out.shape == (1, 2, 16, 16, 4) and bool(torch.isfinite(out).all())
     assert not torch.equal(model.bn1.running_var, before)
-    for key, val in (('remat', True), ('bn_axis_name', 'batch')):
-        with pytest.raises(NotImplementedError, match='Queue 1'):
-            get_model('hg', device='cpu', num_stacks=1, num_classes=4, **{key: val})
+    assert get_model('hg', device='cpu', num_stacks=1, num_classes=4, remat=True).remat
+    with pytest.raises(NotImplementedError, match='Queue 1'):
+        get_model('hg', device='cpu', num_stacks=1, num_classes=4, bn_axis_name='batch')
     with pytest.raises(NotImplementedError, match='mspn'):
         get_model('mspn', device='cpu', num_stacks=1, num_classes=4)
 

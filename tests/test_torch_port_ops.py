@@ -29,6 +29,14 @@ from hourglass_pose_estimation_torch.utils import transforms as ttf
 torch.set_num_threads(1)
 
 
+@pytest.fixture(scope='module')
+def rng():
+    """This file's own seeded stream: the session-wide `rng` of conftest.py
+    is shared by every file a test worker runs, so its draws here would
+    depend on which files ran before."""
+    return np.random.RandomState(0)
+
+
 def _jax_params_to_port(params):
     """JAX BottleneckParams -> port BottleneckParams through the port's
     `params_from_variables` (the folded a/b fed in as BN scale/bias with

@@ -31,6 +31,14 @@ from hourglass_pose_estimation_torch.weights import (
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope='module')
+def rng():
+    """This file's own seeded stream: the session-wide `rng` of conftest.py
+    is shared by every file a test worker runs, so its draws here would
+    depend on which files ran before."""
+    return np.random.RandomState(0)
+
 DS_KW = dict(num_samples=6, inp_res=64, out_res=16, sigma=1,
              scale_factor=0.25, rot_factor=30)
 

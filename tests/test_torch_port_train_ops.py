@@ -31,6 +31,14 @@ from hourglass_pose_estimation_torch.utils import evaluation as teval
 torch.set_num_threads(1)
 
 
+@pytest.fixture(scope='module')
+def rng():
+    """This file's own seeded stream: the session-wide `rng` of conftest.py
+    is shared by every file a test worker runs, so its draws here would
+    depend on which files ran before."""
+    return np.random.RandomState(0)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
