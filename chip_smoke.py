@@ -14,9 +14,12 @@ failure):
      events) beside its plain version, its bound and, where one PyTorch
      call computes the same function, that call: the fused bottleneck under
      both schedules (the cluster kernel, impl 'image', and the row-tile
-     kernel, impl 'chunked', held bit-equal to each other; their cluster
-     shape, shared memory and resident clusters, and their times weighted
-     by one forward's launches at each shape), upsample+add, peak decode,
+     kernel, impl 'chunked', held bit-equal to each other; at 64^2, 32^2
+     and 16^2 each one's device time through a CUDA graph of 20 calls, its
+     TFLOP/s and share of the bound, its row tile, cluster shape, shared
+     memory and resident clusters; registers and spills from the build
+     log; the times weighted by one forward's launches at each shape),
+     upsample+add, peak decode,
      and the training kernels (upsample backward at every decoder shape,
      the 2x2 max-pool forward and backward at the stem and hourglass
      shapes with planted ties, the Gaussian target render with joints on
@@ -187,6 +190,53 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Device time of one call of fn: `iters` calls captured in a CUDA
+    graph and replayed, so that the wrapper's host time (its checks and
+    ctypes call, tens of microseconds) does not stretch a short kernel."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ptxas_usage(log: str, source: str) -> dict:
+    """{kernel symbol: registers, spill stores and loads in bytes} of one
+    source's section of the build log (`nvcc -Xptxas -v`)."""
+    import re
+    out, name, inside = {}, None, False
+    for ln in log.splitlines():
+        if ln.startswith('== '):
+            inside = ln[3:].strip() == source
+            continue
+        if not inside:
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', ln)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', ln)
+        if m and name:
+            out[name]['registers'] = int(m.group(1))
+    return out
+
+
 def bound_ms(flops: float, bytes_: float, peak_flops: float):
     t_ops, t_bytes = flops / peak_flops, bytes_ / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops > t_bytes else 'bytes')
@@ -240,12 +290,20 @@ def kernel_phases(seed: int):
     rows = []
 
     # --- fused bottleneck, both schedules: 64 images at 64^2, 32^2, 16^2,
-    # C=256, P=128; each against the plain version and against each other
+    # C=256, P=128; each against the plain version and against each other;
+    # each kernel's device time (a CUDA graph of 20 calls), TFLOP/s and
+    # share of the bound at each shape, its tile choice, shared memory,
+    # registers and spills
     blk = Bottleneck(256, 128, fuse_block=True)
     randomize_bn_(blk, gen)
     prm = blk.to(dev).fused_params()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     lib = _build.library()
+    usage = {impl: next(v for k, v in ptxas_usage(lib.build_log, 'bottleneck.cu').items()
+                        if kname in k)
+             for impl, kname in (('image', 'bottleneck_image_kernel'),
+                                 ('chunked', 'bottleneck_fwd_kernel'))}
+    print(f'bottleneck build (ptxas): {json.dumps(usage)}', flush=True)
     per_shape, at64 = {}, {}
     for hw in (64, 32, 16):
         x = torch.randn(BATCH, hw, hw, 256, generator=gen).to(dev, torch.bfloat16)
@@ -253,16 +311,18 @@ def kernel_phases(seed: int):
         outs = {impl: fn(x, prm) for impl, fn in BOTTLENECK_IMPLS.items()}
         torch.cuda.synchronize()
         tr, r = bk.image_schedule(BATCH, hw, hw, sms)
+        ctr = bk.rows_per_block(BATCH, hw, hw, sms)
         npix = BATCH * hw * hw
         flops = 2.0 * npix * (256 * 128 * 2 + 9 * 128 * 128)
         nbytes = 2.0 * npix * 256 * 2 + 2 * (256 * 128 * 2 + 9 * 128 * 128) + 4 * (3 * 256 + 6 * 128)
         b_ms, b_by = bound_ms(flops, nbytes, PEAK_BF16)
-        entry = dict(hw=hw, image_TR=tr, image_R=r,
+        entry = dict(hw=hw, bound_ms=b_ms, bound_by=b_by,
+                     image_TR=tr, image_R=r,
                      image_smem_bytes=lib.hpe_bottleneck_smem_bytes(hw, tr),
                      image_max_active_clusters=bk.max_active_clusters(hw, tr, r, dev.index or 0),
-                     chunked_TR=bk.rows_per_block(BATCH, hw, hw, sms),
-                     image_equals_chunked=bool(torch.equal(outs['image'], outs['chunked'])),
-                     bound_ms=b_ms, bound_by=b_by)
+                     chunked_TR=ctr, chunked_blocks=BATCH * -(-hw // ctr),
+                     chunked_smem_bytes=lib.hpe_bottleneck_smem_bytes(hw, ctr),
+                     image_equals_chunked=bool(torch.equal(outs['image'], outs['chunked'])))
         for impl, got in outs.items():
             err = rel_l2(got, ref)
             branch = rel_l2(got.float() - x.float(), ref.float() - x.float())
@@ -271,10 +331,12 @@ def kernel_phases(seed: int):
             check(branch <= TOL_BOTTLENECK,
                   f'bottleneck {impl} {hw}^2 branch rel L2 {branch:.3e} > {TOL_BOTTLENECK}')
             fn = BOTTLENECK_IMPLS[impl]
+            ms = graph_ms(lambda: fn(x, prm), 20)
             entry.update({f'{impl}_rel_l2': err, f'{impl}_rel_l2_branch': branch,
                           f'{impl}_max_abs_err': float((got.float() - ref.float()).abs().max()),
-                          f'{impl}_ms': time_ms(lambda: fn(x, prm), 20)})
-            entry[f'{impl}_tflops'] = flops / entry[f'{impl}_ms'] / 1e9
+                          f'{impl}_ms': ms, f'{impl}_tflops': flops / ms / 1e9,
+                          f'{impl}_bound_share': b_ms / ms,
+                          f'{impl}_wrapper_ms': time_ms(lambda: fn(x, prm), 20)})
         entry['plain_ms'] = time_ms(lambda: bottleneck_reference(x, prm), 5)
         per_shape[hw] = entry
         print(f'bottleneck {hw}x{hw}: ' + json.dumps(entry), flush=True)
@@ -299,7 +361,9 @@ def kernel_phases(seed: int):
             s[f'{impl}_ms'], s['plain_ms'], (s['bound_ms'], s['bound_by']), None,
             shape='[64,64,64,256] bf16', rel_l2=s[f'{impl}_rel_l2'],
             ms_by_hw={hw: e[f'{impl}_ms'] for hw, e in per_shape.items()},
-            per_forward_ms=per_forward[impl],
+            tflops_by_hw={hw: e[f'{impl}_tflops'] for hw, e in per_shape.items()},
+            bound_ms_by_hw={hw: e['bound_ms'] for hw, e in per_shape.items()},
+            per_forward_ms=per_forward[impl], ptxas=usage[impl],
             library='none: no one PyTorch call computes the whole block'))
     del at64
 

@@ -74,9 +74,11 @@ class ModelConfig:
     # arch=hg rejects non-default values rather than ignore them.
     up_channel_num: int = 256
     # arch=hg only: the Hopper kernels on the serving path. Eligible
-    # bottlenecks (identity residual, >= 16 px, running-average BN) run
-    # the fused bottleneck kernel (models/modules.py Bottleneck.fuse_block)
-    # and sum merges the fused upsample+add (Hourglass.fuse_upsample).
+    # bottlenecks (identity residual, >= 16 px, running-average BN, and
+    # the kernel's scope: bf16 compute, 128 planes) run the fused
+    # bottleneck kernel (models/modules.py Bottleneck.fuse_block); an f32
+    # model (TRAIN.precision f32) runs its standard blocks. Sum merges take
+    # the fused upsample+add (Hourglass.fuse_upsample).
     # On by default, unlike the JAX package: on the card both kernels beat
     # their plain versions (PERF.md), and CPU tensors take the plain
     # versions anyway. False runs the plain path, the kernels-off control.

@@ -20,6 +20,7 @@ from hourglass_pose_estimation_torch.models.norm import BatchNorm
 from hourglass_pose_estimation_torch.ops.hopper import (
     BottleneckParams, fused_bottleneck, maxpool2x2, params_from_variables,
     upsample2x_add)
+from hourglass_pose_estimation_torch.ops.hopper.bottleneck import PLANES
 from hourglass_pose_estimation_torch.ops.hopper.upsample import (
     upsample2x_nearest as _upsample2x_nhwc)
 
@@ -67,8 +68,9 @@ class Bottleneck(nn.Module):
     frozen-BN train step) of an identity-residual, stride-1, non-mobile
     block of at least `fuse_min_hw` pixels a side as the fused bottleneck
     (ops/hopper/bottleneck.py), differentiable through its autograd
-    Function; every other block takes the standard path, with the JAX
-    package's gating."""
+    Function, where the block is in the kernel's scope: bf16 compute and
+    PLANES planes. Every other block takes the standard path: the JAX
+    package's gating, narrowed to what the kernel takes."""
 
     def __init__(self, in_ch: int, planes: int, stride: int = 1,
                  mobile: bool = False, dtype=torch.bfloat16,
@@ -124,7 +126,11 @@ class Bottleneck(nn.Module):
         return self._fold_cache[1]
 
     def _fuses(self, x: torch.Tensor, train: bool) -> bool:
+        """The JAX package's gating, narrowed to the kernel's scope: bf16
+        compute and PLANES planes (an f32 or narrower block runs the
+        standard path on every device)."""
         return (self.fuse_block and not train and self.stride == 1
+                and self.compute_dtype == torch.bfloat16 and self.planes == PLANES
                 and x.shape[1] == self.planes * EXPANSION and not self.mobile
                 and min(x.shape[2], x.shape[3]) >= self.fuse_min_hw)
 

@@ -8,10 +8,20 @@ its two schedules, `impl='image'` and `impl='chunked'`, and the custom VJP
 `bottleneck_backward_reference`). The kernels are `csrc/bottleneck.cu`:
 the image schedule as a thread-block cluster per image
 (`fused_bottleneck_image`), the chunked one as independent row tiles that
-recompute their halo (`fused_bottleneck_chunked`); its header says what
-bounds them and how the design answers that. `DEFAULT_IMPL` picks the
-schedule wherever the caller names none, as in the JAX package. The
-backward is plain PyTorch ops, as it is XLA in the JAX package.
+recompute their halo (`fused_bottleneck_chunked`). Both run one Hopper
+core: a producer warpgroup streams the weights through a TMA ring in
+shared memory (multicast over the cluster in the image schedule), and two
+consumer warpgroups run `wgmma` with A from registers; the source's header
+says what bounds them and how the design answers that. The tile choosers
+(`rows_per_block`, `image_schedule`) size a block's row tile from the
+kernel's shared-memory budget (`hpe_bottleneck_smem_bytes`: the t2 window
+and the weight ring). `DEFAULT_IMPL` picks the schedule wherever the
+caller names none, as in the JAX package. The backward is plain PyTorch
+ops, as it is XLA in the JAX package.
+
+The kernels take bf16 only, with P = PLANES and C = 2 * PLANES (the
+identity residual's width); `models/modules.py` routes only such blocks
+here.
 
 Layouts are the JAX package's: x [B, H, W, C] (NHWC), w1 [C, P],
 w2 [3, 3, P, P] (HWIO), w3 [P, C]. The kernels read each weight
@@ -39,9 +49,11 @@ IMPLS = ('image', 'chunked')
 # each call, so setting this module attribute switches every call site, as
 # the JAX package's module-level DEFAULT_IMPL does. 'chunked' from the H100's
 # times at the flagship shapes weighted by the launches of one forward
-# (17 at 64^2, 24 at 32^2, 24 at 16^2; chip_smoke.py prints both sums): at
-# 64^2 a cluster of 8 blocks fits 15 times at once (120 of 132 SMs), so the
-# image schedule takes more waves than the chunked one saves in halo rows.
+# (17 at 64^2, 24 at 32^2, 24 at 16^2; chip_smoke.py prints both sums):
+# 10.65 ms against 13.12. At 64^2 the image schedule needs clusters of 8
+# blocks of 8 rows, which fit 15 at once (120 of 132 SMs) and wait on
+# their slowest block for every multicast weight tile; the chunked kernel's
+# 512 blocks of 8 rows each run on their own.
 DEFAULT_IMPL = 'chunked'
 
 
@@ -134,8 +146,11 @@ def _fill(batch: int, height: int, tr: int, sms: int, ok) -> int:
 @functools.lru_cache(maxsize=256)
 def rows_per_block(batch: int, height: int, width: int, sms: int) -> int:
     """Output rows per CUDA block of the chunked kernel: the largest divisor
-    of H whose t2 window fits in shared memory, halved while the grid would
-    leave SMs idle."""
+    of H whose t2 window and weight ring fit in shared memory, halved while
+    the grid would leave SMs idle. On an H100 at batch 64 the largest tile
+    was the fastest: TR 8 at 64^2 (0.449 ms against 0.461 at TR 4), TR 16
+    at 32^2 (0.115 against 0.118 at TR 8); each halving adds 2/TR of
+    conv1's work in halo rows."""
     lib = _build.library()
     fits = [d for d in range(1, height + 1)
             if height % d == 0
@@ -149,9 +164,12 @@ def rows_per_block(batch: int, height: int, width: int, sms: int) -> int:
 @functools.lru_cache(maxsize=256)
 def image_schedule(batch: int, height: int, width: int, sms: int) -> tuple:
     """(TR, R) of the cluster kernel: R = H / TR blocks per image, TR the
-    largest divisor of H whose t2 window fits in shared memory with
-    R <= MAX_CLUSTER, halved (R doubled, up to MAX_CLUSTER) while the grid
-    would leave SMs idle, as the chunked kernel's row tile is."""
+    largest divisor of H whose t2 window and weight ring fit in shared
+    memory with R <= MAX_CLUSTER, halved (R doubled, up to MAX_CLUSTER)
+    while the grid would leave SMs idle, as the chunked kernel's row tile
+    is. Larger clusters share each multicast weight tile among more blocks
+    but wait on the slowest of them; on an H100 at batch 64 the tile this
+    picks was the fastest of every R <= 8 at 32^2 and 16^2."""
     lib = _build.library()
     ok = lambda d: height // d <= MAX_CLUSTER
     fits = [d for d in range(1, height + 1)
@@ -186,9 +204,9 @@ def _check_cuda(x: torch.Tensor, p: BottleneckParams):
                          f'strides {x.stride()}')
     C = x.shape[3]
     P = p.w1.shape[1]
-    if P != PLANES or C % PLANES != 0 or tuple(p.w1.shape) != (C, P):
-        raise ValueError(f'fused_bottleneck kernel: needs P={PLANES} and C a '
-                         f'multiple of {PLANES}; got C={C}, w1 {tuple(p.w1.shape)}')
+    if P != PLANES or C != 2 * PLANES or tuple(p.w1.shape) != (C, P):
+        raise ValueError(f'fused_bottleneck kernel: needs P={PLANES} and '
+                         f'C={2 * PLANES}; got C={C}, w1 {tuple(p.w1.shape)}')
     shapes = dict(w2=(3, 3, P, P), w3=(P, C))
     for name, t in p._asdict().items():
         if t.device != x.device:

@@ -6,6 +6,8 @@ no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -44,10 +46,13 @@ def _rel(a, b):
     return float((a - b).norm() / b.norm())
 
 
-@pytest.mark.parametrize('shape', [(2, 16, 16), (1, 17, 24), (3, 64, 64)])
+@pytest.mark.parametrize('shape', [(2, 16, 16), (1, 17, 24), (3, 64, 64), (1, 64, 64),
+                                   (64, 16, 16)])
 def test_bottleneck_kernel_matches_plain(dev, shape):
     """Both schedules against the plain version, and against each other:
-    the same products in the same k-order per pixel, so the same bits."""
+    the same products in the same k-order per pixel, so the same bits. Batch
+    1 at 64^2 is the serving batch-1 path; 64 images of 16^2 fill the card
+    with small blocks."""
     torch.manual_seed(0)
     blk = Bottleneck(256, 128).to(dev)
     prm = blk.fused_params()
@@ -85,15 +90,50 @@ def test_cluster_bottleneck_kernel_matches_chunked_and_plain(dev, shape):
 
 
 def test_cluster_bottleneck_refuses_more_than_eight_blocks(dev):
-    """128 rows of 128 pixels: a t2 window that fits in shared memory holds
-    at most 3 rows, so a cluster would need more than 8 blocks."""
+    """128 rows of 128 pixels: a t2 window that fits in shared memory beside
+    the weight ring holds at most 3 rows, so a cluster would need more than
+    8 blocks; the chunked kernel runs 64 blocks of 2 rows."""
+    torch.manual_seed(2)
     prm = Bottleneck(256, 128).to(dev).fused_params()
-    x = torch.zeros(1, 128, 128, 256, device=dev, dtype=torch.bfloat16)
+    x = torch.randn(1, 128, 128, 256, device=dev).to(torch.bfloat16)
     before = fused_bottleneck_image.launches
     with pytest.raises(ValueError, match="impl='chunked'"):
         fused_bottleneck(x, prm, impl='image')
     assert fused_bottleneck_image.launches == before
-    assert fused_bottleneck(x, prm, impl='chunked').shape == x.shape
+    got = fused_bottleneck(x, prm, impl='chunked')
+    ref = bottleneck_reference(x, prm)
+    assert _rel(got.float() - x.float(), ref.float() - x.float()) < 1e-2
+
+
+@pytest.mark.parametrize('impl', ['image', 'chunked'])
+def test_bottleneck_kernel_is_deterministic(dev, impl):
+    """Two launches on the same inputs give the same bits: each output is
+    summed in a fixed order, with no atomics."""
+    torch.manual_seed(3)
+    prm = Bottleneck(256, 128).to(dev).fused_params()
+    x = torch.randn(8, 32, 32, 256, device=dev).to(torch.bfloat16)
+    assert torch.equal(fused_bottleneck(x, prm, impl=impl), fused_bottleneck(x, prm, impl=impl))
+
+
+def test_f32_config_eval_step_runs_standard_blocks(dev, tmp_path):
+    """configs/train_synthetic_tiny.yaml (precision f32, MODEL.fuse_block at
+    its default, on): the Trainer's validation pass runs on the card. The
+    fused bottleneck takes bf16 only, so the f32 model's blocks take the
+    standard path: no bottleneck launch (it raised ValueError at the first
+    validation batch when the model routed f32 blocks to the kernel)."""
+    from hourglass_pose_estimation_torch.config import load_config
+    from hourglass_pose_estimation_torch.runner import Trainer
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / 'configs' /
+                          'train_synthetic_tiny.yaml'),
+                      overrides=[f'COMMON.checkpoint_dir={tmp_path}'])
+    assert cfg.model.fuse_block and cfg.train.precision == 'f32'
+    t = Trainer(cfg, verbose=False, device=dev)
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    loss, acc = t._evaluate()
+    assert np.isfinite([loss, acc]).all()
+    assert fused_bottleneck_chunked.launches == fused_bottleneck_image.launches == 0
+    assert upsample2x_add.launches > 0
 
 
 @pytest.mark.parametrize('h,c,dtype', [(12, 32, torch.float32),

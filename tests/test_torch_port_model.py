@@ -127,18 +127,43 @@ def test_hourglassnet_train_matches_flax(stacks, stat_samples):
 
 
 def test_fuse_block_gating_matches_jax():
-    """Which blocks take the fused kernel: the JAX gating exactly
-    (identity residual, stride 1, non-mobile, >= fuse_min_hw a side,
-    eval only)."""
-    x16 = torch.zeros(1, 32, 16, 16)
-    assert Bottleneck(32, 16, fuse_block=True)._fuses(x16, train=False)
-    assert not Bottleneck(32, 16, fuse_block=True)._fuses(x16, train=True)
-    assert not Bottleneck(32, 16)._fuses(x16, train=False)
-    assert not Bottleneck(32, 8, fuse_block=True)._fuses(x16, False)
-    assert not Bottleneck(32, 16, stride=2, fuse_block=True)._fuses(x16, False)
-    assert not Bottleneck(32, 16, mobile=True, fuse_block=True)._fuses(x16, False)
-    assert not Bottleneck(32, 16, fuse_block=True)._fuses(
-        torch.zeros(1, 32, 8, 16), False)
+    """Which blocks take the fused kernel: the JAX gating (identity
+    residual, stride 1, non-mobile, >= fuse_min_hw a side, eval only),
+    within the kernel's scope (bf16 compute, PLANES planes)."""
+    x16 = torch.zeros(1, 256, 16, 16)
+    assert Bottleneck(256, 128, fuse_block=True)._fuses(x16, train=False)
+    assert not Bottleneck(256, 128, fuse_block=True)._fuses(x16, train=True)
+    assert not Bottleneck(256, 128)._fuses(x16, train=False)
+    assert not Bottleneck(256, 64, fuse_block=True)._fuses(x16, False)
+    assert not Bottleneck(256, 128, stride=2, fuse_block=True)._fuses(x16, False)
+    assert not Bottleneck(256, 128, mobile=True, fuse_block=True)._fuses(x16, False)
+    assert not Bottleneck(256, 128, fuse_block=True)._fuses(
+        torch.zeros(1, 256, 8, 16), False)
+    assert not Bottleneck(256, 128, fuse_block=True, dtype=torch.float32)._fuses(x16, False)
+    assert not Bottleneck(32, 16, fuse_block=True)._fuses(torch.zeros(1, 32, 16, 16), False)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_fused_path_takes_only_bf16_models(monkeypatch, dtype):
+    """MODEL.fuse_block on: a 1-stack model at 64^2 calls the fused
+    bottleneck only in bf16 compute, the kernel's one type; in f32 every
+    block runs the standard path (on the card the kernel would raise)."""
+    from hourglass_pose_estimation_torch.models import modules
+    calls = []
+    fused = modules.fused_bottleneck
+    monkeypatch.setattr(modules, 'fused_bottleneck',
+                        lambda x, p, *a, **k: calls.append(x.dtype) or fused(x, p, *a, **k))
+    torch.manual_seed(0)
+    model = get_model('hg', device='cpu', num_stacks=1, num_classes=16, dtype=dtype,
+                      fuse_block=True, fuse_upsample=True)
+    with torch.no_grad():
+        out = model(torch.rand(1, 64, 64, 3))
+    assert out.shape == (1, 1, 16, 16, 16) and bool(torch.isfinite(out.float()).all())
+    if dtype == torch.float32:
+        assert calls == []
+    else:
+        # layer3, hg0.up1_l4 and res0 at 16^2
+        assert calls == [torch.bfloat16] * 3
 
 
 def test_train_mode_raises_until_the_training_slice():

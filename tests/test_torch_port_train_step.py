@@ -3,7 +3,8 @@ HourglassNet at 64^2, batch 4, filled from the flax variables, the same
 canvases and the JAX augmentation draws injected into the port's step.
 Checked: the train step through the device pipeline (step 1, f32), two
 train steps on the same staged batches (f64 compute, see there), the
-frozen-BN step through the fused bottleneck's autograd Function, and the
+frozen-BN step (f32 on the standard blocks, bf16 through the fused
+bottleneck's autograd Function), one bf16 fused block's gradients, and the
 eval step with a padded batch."""
 
 import numpy as np
@@ -39,6 +40,17 @@ LR = (2.5e-3, [], 0.1, 4)
 # leaf reads 7e-4 relative L2 (a deep block whose calibrated variance is
 # small); held at about 4x that
 GRAD_RTOL = 3e-3
+# the frozen step's loss in bf16 compute (fused blocks) against the f32 one:
+# bf16 rounding through a 1-stack model, read 3.5e-2 here (3.7e-2 with the
+# blocks unfused, so the gap is bf16's, not the fused path's); held at ~4x
+BF16_LOSS_RTOL = 0.15
+# the same step's loss against the JAX bf16 model's (its fused blocks in
+# interpret mode): read 1.5e-2 apart, held at 4x
+BF16_LOSS_VS_JAX = 6e-2
+# one bf16 fused block against the JAX one, relative L2: every parameter
+# gradient read at most 5.7e-4 (conv3's kernel at 24x20), the output 3.0e-4,
+# dx 5.2e-5; held at about 4x
+BF16_BLOCK_RTOL = 2.5e-3
 
 
 def _jax_state(fuse_block=False, dtype=jnp.float32, lr=LR):
@@ -181,12 +193,16 @@ def _grad_tree(model):
 
 
 def test_frozen_bn_step_with_fused_blocks_matches_jax(data, calib):
-    """freeze_bn with fuse_block, on the same staged batch in f32: the fused
-    bottlenecks run in the step and their autograd Function carries the
-    backward to gamma, beta and the conv weights. Checked against JAX: the
-    loss, and every parameter's gradient against `jax.grad` of the frozen
-    loss (which runs the JAX fused blocks' custom VJP). The running
-    statistics stay as they were.
+    """freeze_bn with fuse_block, on the same staged batch. In f32 the port's
+    blocks take the standard path (the fused kernel's scope is bf16), the
+    JAX blocks its fused bottleneck: the loss, and every parameter's
+    gradient against `jax.grad` of the frozen loss (which runs the JAX fused
+    blocks' custom VJP). In bf16 compute the port's fused bottlenecks run in
+    the step and their autograd Function carries the backward to gamma,
+    beta and the conv weights; its loss is held to the f32 one and to the
+    JAX bf16 model's, its gradients block by block in
+    `test_fused_block_gradients_match_jax_in_bf16`. The running statistics
+    stay as they were.
 
     A second step's loss is no check here: after RMSprop's first update
     (lr * 10 * sign(g) per parameter) f32 noise in the signs of near-zero
@@ -208,23 +224,91 @@ def test_frozen_bn_step_with_fused_blocks_matches_jax(data, calib):
     step = tts.make_train_step(spec, device_pipeline=False, freeze_bn=True)
     calls = fused_bottleneck.backward_calls
     state, m1 = step(state, staged, 5)
-    # 3 fused blocks at 16^2 (layer3, hg0.up1_l4, res0)
-    assert fused_bottleneck.backward_calls == calls + 3
+    assert fused_bottleneck.backward_calls == calls
     np.testing.assert_allclose(float(m1['loss']), float(jloss), rtol=1e-5)
-    blk = state.model.hg0.up1_l4.block0
-    assert blk._fuses(torch.zeros(1, 256, 16, 16), train=False)
-    for name in ('bn1.weight', 'bn1.bias', 'bn3.weight', 'conv1.weight',
-                 'conv2.weight', 'conv3.weight', 'conv3.bias'):
-        grad = blk.get_parameter(name).grad
-        assert grad is not None and float(grad.abs().max()) > 0, name
+
     for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(_grad_tree(state.model)),
                             jax.tree.leaves(jgrads)):
         b = np.asarray(b)
         rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
         assert rel <= GRAD_RTOL, (jax.tree_util.keystr(path), rel)
+
+    # bf16 compute: the port's fused blocks run in the step (their fold is
+    # held to JAX's gradients block by block in the test below); the loss
+    # against the JAX bf16 model's, whose fused blocks run the Pallas kernel
+    # in interpret mode
+    jbf16 = _jax_state(fuse_block=True, dtype=jnp.bfloat16)
+    outs16 = jbf16.apply_fn({'params': jstate.params, 'batch_stats': jstate.batch_stats},
+                            jnp.asarray(staged['image']), train=False)
+    jloss16 = jax_loss(outs16, staged['target'], staged['target_weight'])
+    bf16 = _port_state(jstate, dtype=torch.bfloat16, fuse_block=True, fuse_upsample=True)
+    bf16, mb = step(bf16, staged, 5)
+    # 3 fused blocks at 16^2 (layer3, hg0.up1_l4, res0)
+    assert fused_bottleneck.backward_calls == calls + 3
+    np.testing.assert_allclose(float(mb['loss']), float(jloss), rtol=BF16_LOSS_RTOL)
+    np.testing.assert_allclose(float(mb['loss']), float(jloss16), rtol=BF16_LOSS_VS_JAX)
+    blk = bf16.model.hg0.up1_l4.block0
+    assert blk._fuses(torch.zeros(1, 256, 16, 16), train=False)
+    for name in ('bn1.weight', 'bn1.bias', 'bn3.weight', 'conv1.weight',
+                 'conv2.weight', 'conv3.weight', 'conv3.bias'):
+        grad = blk.get_parameter(name).grad
+        assert grad is not None and float(grad.abs().max()) > 0, name
+        assert bool(torch.isfinite(grad).all()), name
     after = to_jax_variables(state.model)['batch_stats']
     for a, b in zip(jax.tree.leaves(after), jax.tree.leaves(stats0)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('shape', [(2, 16, 16), (1, 24, 20)])
+def test_fused_block_gradients_match_jax_in_bf16(shape):
+    """One bf16 block with fuse_block on, as the frozen-BN step runs it:
+    the port's fold of BN and conv parameters into the fused bottleneck and
+    its autograd Function, against `jax.grad` through the JAX block's fused
+    path (the Pallas kernel in interpret mode, its custom VJP), leaf by
+    leaf and for x, on the same variables, input and output gradient. At
+    the model level bf16 rounding through the whole backward leaves the
+    leaves up to 0.41 apart (standard blocks alike), too loose to see the
+    fold; one block is not."""
+    from hourglass_pose_estimation_tpu.models.modules import Bottleneck as JaxBlock
+    from hourglass_pose_estimation_torch.models.modules import Bottleneck
+    rng = np.random.RandomState(11)
+    n, h, w = shape
+    x = rng.normal(0, 1, (n, h, w, 256)).astype(np.float32)
+    g = rng.normal(0, 1, (n, h, w, 256)).astype(np.float32)
+    jblk = JaxBlock(planes=128, dtype=jnp.bfloat16, fuse_block=True)
+    v = jax.tree.map(np.asarray, dict(jblk.init(jax.random.PRNGKey(1), jnp.asarray(x),
+                                                train=False)))
+    for bn in ('bn1', 'bn2', 'bn3'):
+        c = v['params'][bn]['scale'].shape
+        v['params'][bn] = {'scale': (1 + rng.normal(0, 0.1, c)).astype(np.float32),
+                           'bias': rng.normal(0, 0.1, c).astype(np.float32)}
+        v['batch_stats'][bn] = {'mean': rng.normal(0, 0.1, c).astype(np.float32),
+                                'var': rng.uniform(0.5, 1.5, c).astype(np.float32)}
+    xb = jnp.asarray(x, jnp.bfloat16)
+
+    def jfwd(params, xin):
+        return jblk.apply({'params': params, 'batch_stats': v['batch_stats']}, xin,
+                          train=False)
+
+    jout, vjp = jax.vjp(jfwd, v['params'], xb)
+    jgrads, jdx = vjp(jnp.asarray(g, jnp.bfloat16))
+
+    blk = Bottleneck(256, 128, dtype=torch.bfloat16, fuse_block=True)
+    load_jax_variables(blk, v)
+    xt = torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2).requires_grad_()
+    calls = fused_bottleneck.backward_calls
+    out = blk(xt, train=False)
+    out.backward(torch.from_numpy(g).to(torch.bfloat16).permute(0, 3, 1, 2))
+    assert fused_bottleneck.backward_calls == calls + 1
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    f32 = lambda t: np.asarray(jnp.asarray(t, jnp.float32))
+    assert rel(out.detach().float().permute(0, 2, 3, 1).numpy(), f32(jout)) <= BF16_BLOCK_RTOL
+    assert rel(xt.grad.float().permute(0, 2, 3, 1).numpy(), f32(jdx)) <= BF16_BLOCK_RTOL
+    grads = _grad_tree(blk)
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(grads),
+                            jax.tree.leaves(jgrads)):
+        r = rel(np.asarray(a, np.float32), f32(b))
+        assert r <= BF16_BLOCK_RTOL, (jax.tree_util.keystr(path), r)
 
 
 def test_eval_step_with_padding_matches_jax(data, calib):
