@@ -7,23 +7,31 @@ Phases (any failed check exits non-zero; no phase catches its own
 failure):
   1. the card's name and power limit (nvidia-smi);
   2. build the Hopper kernels from `hourglass_pose_estimation_torch/
-     csrc/*.cu` (one nvcc per source, all started together, into the
-     package's ignored build directory);
+     csrc/*.cu` and the first-generation render and decode
+     (`experiments/render_decode_v1.cu`), one nvcc per source, all started
+     together, into the package's ignored build directory;
   3. each kernel at its main path's shapes against its plain PyTorch
-     version on the card, with the tolerance stated, and timed (CUDA
-     events) beside its plain version, its bound and, where one PyTorch
-     call computes the same function, that call: the fused bottleneck under
-     both schedules (the cluster kernel, impl 'image', and the row-tile
-     kernel, impl 'chunked', held bit-equal to each other; at 64^2, 32^2
-     and 16^2 each one's device time through a CUDA graph of 20 calls, its
-     TFLOP/s and share of the bound, its row tile, cluster shape, shared
-     memory and resident clusters; registers and spills from the build
-     log; the times weighted by one forward's launches at each shape),
-     upsample+add, peak decode,
-     and the training kernels (upsample backward at every decoder shape,
-     the 2x2 max-pool forward and backward at the stem and hourglass
-     shapes with planted ties, the Gaussian target render with joints on
-     the edges, off the map and at weight 0);
+     version on the card, with the tolerance stated, and its device time
+     (`cold_hot_ms`: a CUDA graph of 20 calls, cold with each call on its
+     own inputs and outputs, hot on one set; the kernels line's `ms` is
+     the cold one, the bottleneck's the hot one, as a forward reads an
+     activation just written) beside its plain version
+     (CUDA events around calls), its bound and, where one PyTorch call
+     computes the same function, that call's device time: the fused
+     bottleneck under both schedules (the cluster kernel, impl 'image',
+     and the row-tile kernel, impl 'chunked', held bit-equal to each
+     other; at 64^2, 32^2 and 16^2 each one's TFLOP/s and share of the
+     bound, its row tile, cluster shape, shared memory and resident
+     clusters; registers and spills from the build log; the times weighted
+     by one forward's launches at each shape), upsample+add, peak decode
+     (planted ties, one across two blocks' slabs, and NaN; also at batches
+     1, 37, 48 and 60, where the launch takes clusters of 8, 7, 6 and 5
+     blocks), and the training kernels (upsample backward at every decoder
+     shape, the 2x2 max-pool forward and backward at the stem and
+     hourglass shapes with planted ties, the Gaussian target render with
+     joints on the edges, off the map and at weight 0, equal at sigma 1);
+     render and decode also time the first-generation kernels in turns
+     with the present ones (`before_ms`);
   4. the serving path: the flagship 8-stack hourglass of
      configs/train_mpii_8stack.yaml with seeded weights, built by
      serve_http.build_inference into a frames -> keypoints function
@@ -85,6 +93,15 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+# the first-generation render and decode kernels, timed beside the present
+# ones (`before_ms`)
+V1_SOURCE = REPO / 'experiments' / 'render_decode_v1.cu'
+# device times: a CUDA graph of GRAPH_CALLS calls, the median of
+# GRAPH_REPLAYS replays
+GRAPH_CALLS, GRAPH_REPLAYS = 20, 5
+L2_BYTES = 50 * 2 ** 20
+# the port's kernels in a profile, by their symbols' names
+PORT_KERNEL_NAMES = ('upsample2x', 'maxpool2x2', 'render_gaussian', 'bottleneck', 'decode_peaks')
 BATCH = 64
 RES = 256
 N_REQUESTS = 256
@@ -190,27 +207,153 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int) -> float:
-    """Device time of one call of fn: `iters` calls captured in a CUDA
-    graph and replayed, so that the wrapper's host time (its checks and
-    ctypes call, tens of microseconds) does not stretch a short kernel."""
+def graph_ms(calls, hold: bool, replays: int = GRAPH_REPLAYS):
+    """Device time of one call: the zero-argument functions `calls`
+    captured in order in one CUDA graph and replayed, so that a wrapper's
+    host time (its checks and ctypes call, tens of microseconds) does not
+    stretch a short kernel; the median of `replays` replays over
+    len(calls). hold: keep every call's output alive during the capture,
+    so that each call writes its own buffer (else the allocator hands the
+    next call the memory just freed). -> (ms, distinct output buffers)."""
+    import statistics
     import torch
-    for _ in range(2):
+    for fn in calls[:2]:
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
+    held, ptrs = [], set()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for fn in calls:
+            out = fn()
+            first = out[0] if isinstance(out, (tuple, list)) else out
+            ptrs.add(first.data_ptr())
+            if hold:
+                held.append(out)
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / len(calls))
+    del graph, held
+    return statistics.median(times), len(ptrs)
+
+
+def same_nan_and_bits(a, b) -> bool:
+    """Equal, NaN where the other has NaN."""
+    import torch
+    return bool(torch.equal(a.isnan(), b.isnan())
+                and torch.equal(a.nan_to_num(nan=0.0), b.nan_to_num(nan=0.0)))
+
+
+def in_turns(fns: dict, inputs, rounds: int = 2) -> dict:
+    """{name: fn} -> {name: {cold, hot, cold_turns, hot_turns}}: cold_hot_ms
+    of each fn(*inputs), in turns (in order, then reversed; `rounds`
+    rounds), cold and hot the means of the turns: versions of one function
+    are compared only so."""
+    order = list(fns)
+    got = {name: [] for name in order}
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            got[name].append(cold_hot_ms(fns[name], inputs))
+    return {name: {**{k: sum(t[k] for t in ts) / len(ts) for k in ('cold', 'hot')},
+                   **{f'{k}_turns': [t[k] for t in ts] for k in ('cold', 'hot')}}
+            for name, ts in got.items()}
+
+
+def tensor_bytes(x) -> int:
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return sum(map(tensor_bytes, x)) if isinstance(x, (tuple, list)) else 0
+
+
+def cold_hot_ms(fn, inputs, calls: int = GRAPH_CALLS) -> dict:
+    """Device times of fn(*inputs): `cold`, a graph of at least `calls`
+    calls, each on its own copy of the inputs and its own output buffer,
+    and as many more as it takes for the calls' bytes to reach 4x the
+    50 MB L2 (20 calls at the main path's shapes, 16.8 MB and up a call;
+    763 at [1,64,64,16]), so that each call reads and writes device memory
+    as the bound assumes; `hot`, `calls` calls on one set of inputs, as
+    the serving decode finds a map that the cast before it has just
+    written."""
+    import torch
+    call_bytes = tensor_bytes(inputs) + tensor_bytes(fn(*inputs))
+    n = max(calls, -(-4 * L2_BYTES // call_bytes))
+    copies = [inputs] + [tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in inputs)
+                         for _ in range(n - 1)]
+    cold, n_cold = graph_ms([lambda a=a: fn(*a) for a in copies], hold=True)
+    del copies
+    hot, n_hot = graph_ms([lambda: fn(*inputs)] * calls, hold=False)
+    torch.cuda.empty_cache()
+    check(n_cold == n, f'cold timing: {n_cold} output buffers for {n} calls')
+    return dict(cold=cold, hot=hot, cold_calls=n, hot_buffers=n_hot)
+
+
+def start_nvcc(src: Path):
+    """Start one nvcc that builds `src` (a .cu file with a plain C
+    interface) into a shared library in the package's ignored build
+    directory -> (library path, process)."""
+    from hourglass_pose_estimation_torch.ops.hopper import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / f'lib{src.stem}.so'
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, '-shared', str(src), '-o', str(so)]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def load_built(started, signatures: dict):
+    """Wait for start_nvcc's build and load it with ctypes, each entry
+    point of `signatures` typed (every one returns an int)."""
+    import ctypes
+    so, proc = started
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f'nvcc failed on {so.name}:\n{log}')
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in signatures.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    lib.build_log = log
+    return lib
+
+
+def v1_signatures() -> dict:
+    import ctypes
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return {'hpe_render_gaussian_v1': [P, P, P] + [I] * 5 + [ctypes.c_float, I, P],
+            'hpe_decode_peaks_v1': [P, P, P] + [I] * 4 + [P]}
+
+
+def render_v1(lib, mu, weight, size, sigma):
+    """The first-generation render kernel (experiments/render_decode_v1.cu)
+    on the package wrapper's arguments."""
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch.ops.hopper import _build
+    B, J = weight.shape
+    out = torch.empty((B, int(size[1]), int(size[0]), J), dtype=torch.float32, device=mu.device)
+    _build.check(lib.hpe_render_gaussian_v1(
+        mu.data_ptr(), weight.data_ptr(), out.data_ptr(), B, int(size[1]), int(size[0]), J,
+        int(3 * sigma), float(np.float32(2.0 * float(sigma) ** 2)), _build.num_sms(mu),
+        _build.stream_for(mu)),
+        'render v1')
+    return out
+
+
+def decode_v1(lib, hm):
+    """The first-generation decode kernel (experiments/render_decode_v1.cu)."""
+    import torch
+    from hourglass_pose_estimation_torch.ops.hopper import _build
+    B, H, W, J = hm.shape
+    coords = torch.empty((B, J, 2), dtype=torch.float32, device=hm.device)
+    maxvals = torch.empty((B, J), dtype=torch.float32, device=hm.device)
+    _build.check(lib.hpe_decode_peaks_v1(hm.data_ptr(), coords.data_ptr(), maxvals.data_ptr(),
+                                         B, H, W, J, _build.stream_for(hm)), 'decode v1')
+    return coords, maxvals
 
 
 def ptxas_usage(log: str, source: str) -> dict:
@@ -242,15 +385,30 @@ def bound_ms(flops: float, bytes_: float, peak_flops: float):
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops > t_bytes else 'bytes')
 
 
-def kernel_row(name, source, replaces, got, ref, ms, plain_ms, bound, library_ms,
-               **extra) -> dict:
+def max_abs_err(got, ref) -> float:
+    """Largest |got - ref| where not both are NaN (a NaN in one only counts
+    as inf)."""
+    got, ref = got.detach().float(), ref.detach().float()
+    both = got.isnan() & ref.isnan()
+    d = (got - ref).abs().nan_to_num(nan=float('inf'))[~both]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def kernel_row(name, source, replaces, got, ref, ms: dict, plain_ms, bound,
+               library_ms: dict = None, timing: str = 'cold', **extra) -> dict:
+    """One kernel's entry of the `kernels` line: ms and library_ms are
+    cold_hot_ms's times; 'ms', 'library_ms' and 'bound_share' take the
+    `timing` one, the other stands beside them ('ms_hot' or 'ms_cold')."""
     b_ms, b_by = bound
+    other = 'hot' if timing == 'cold' else 'cold'
     return dict(name=name, route='cuda',
                 source=f'hourglass_pose_estimation_torch/csrc/{source}',
                 replaces=f'hourglass_pose_estimation_tpu/ops/pallas/{replaces}',
-                launches=0, max_abs_err=float((got.float() - ref.float()).abs().max()),
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms, **extra)
+                launches=0, max_abs_err=max_abs_err(got, ref),
+                ms=ms[timing], **{f'ms_{other}': ms[other]}, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms[timing],
+                library_ms=library_ms[timing] if library_ms else None,
+                **{f'library_ms_{other}': library_ms[other] if library_ms else None}, **extra)
 
 
 def randomize_bn_(model, gen) -> None:
@@ -274,8 +432,9 @@ def bottleneck_impls() -> dict:
     return {'image': fused_bottleneck_image, 'chunked': fused_bottleneck_chunked}
 
 
-def kernel_phases(seed: int):
-    """Each kernel vs its plain version at the serving path's shapes."""
+def kernel_phases(seed: int, v1):
+    """Each kernel vs its plain version at the serving path's shapes; v1:
+    the first-generation kernels' library (`before_ms`)."""
     BOTTLENECK_IMPLS = bottleneck_impls()
     import torch
     from hourglass_pose_estimation_torch.models.modules import Bottleneck
@@ -293,7 +452,9 @@ def kernel_phases(seed: int):
     # C=256, P=128; each against the plain version and against each other;
     # each kernel's device time (a CUDA graph of 20 calls), TFLOP/s and
     # share of the bound at each shape, its tile choice, shared memory,
-    # registers and spills
+    # registers and spills. Every time of its row is the hot one, as in a
+    # forward, where a block reads the activation the layer before it has
+    # just written (`ms_cold` beside it)
     blk = Bottleneck(256, 128, fuse_block=True)
     randomize_bn_(blk, gen)
     prm = blk.to(dev).fused_params()
@@ -331,10 +492,12 @@ def kernel_phases(seed: int):
             check(branch <= TOL_BOTTLENECK,
                   f'bottleneck {impl} {hw}^2 branch rel L2 {branch:.3e} > {TOL_BOTTLENECK}')
             fn = BOTTLENECK_IMPLS[impl]
-            ms = graph_ms(lambda: fn(x, prm), 20)
+            t = cold_hot_ms(fn, (x, prm))
+            ms = t['hot']
             entry.update({f'{impl}_rel_l2': err, f'{impl}_rel_l2_branch': branch,
                           f'{impl}_max_abs_err': float((got.float() - ref.float()).abs().max()),
-                          f'{impl}_ms': ms, f'{impl}_tflops': flops / ms / 1e9,
+                          f'{impl}_ms': ms, f'{impl}_ms_cold': t['cold'],
+                          f'{impl}_tflops': flops / ms / 1e9,
                           f'{impl}_bound_share': b_ms / ms,
                           f'{impl}_wrapper_ms': time_ms(lambda: fn(x, prm), 20)})
         entry['plain_ms'] = time_ms(lambda: bottleneck_reference(x, prm), 5)
@@ -358,9 +521,11 @@ def kernel_phases(seed: int):
     for impl, replaces in (('image', 'bottleneck.py:259'), ('chunked', 'bottleneck.py:207')):
         rows.append(kernel_row(
             f'fused_bottleneck_{impl}', 'bottleneck.cu', replaces, at64[impl], at64['ref'],
-            s[f'{impl}_ms'], s['plain_ms'], (s['bound_ms'], s['bound_by']), None,
+            dict(cold=s[f'{impl}_ms_cold'], hot=s[f'{impl}_ms']), s['plain_ms'],
+            (s['bound_ms'], s['bound_by']), None, timing='hot',
             shape='[64,64,64,256] bf16', rel_l2=s[f'{impl}_rel_l2'],
             ms_by_hw={hw: e[f'{impl}_ms'] for hw, e in per_shape.items()},
+            ms_cold_by_hw={hw: e[f'{impl}_ms_cold'] for hw, e in per_shape.items()},
             tflops_by_hw={hw: e[f'{impl}_tflops'] for hw, e in per_shape.items()},
             bound_ms_by_hw={hw: e['bound_ms'] for hw, e in per_shape.items()},
             per_forward_ms=per_forward[impl], ptxas=usage[impl],
@@ -378,33 +543,83 @@ def kernel_phases(seed: int):
     nbytes = 2.0 * (low.numel() + 2 * skip.numel())
     rows.append(kernel_row(
         'upsample2x_add', 'upsample.cu', 'upsample.py:87', got, ref,
-        time_ms(lambda: upsample2x_add(low, skip), 50),
+        cold_hot_ms(upsample2x_add, (low, skip)),
         time_ms(lambda: upsample2x_add_reference(low, skip), 20),
         bound_ms(skip.numel(), nbytes, PEAK_F32), None,
         shape='low [64,32,32,256] bf16',
         library='none: no one PyTorch call upsamples and adds'))
     del low, skip, got, ref
 
-    # --- peak decode: [64,64,64,16] f32 with planted ties, edges, flats
+    # --- peak decode: [64,64,64,16] f32 with planted ties (one across two
+    # blocks' slabs), edges, a flat map and NaN (a NaN among numbers, two
+    # NaNs side by side, an all-NaN joint); timed beside the first-
+    # generation kernel, and at [1,64,64,16], the batch-1 serving path
+    from hourglass_pose_estimation_torch.ops.hopper.decode import decode_schedule
+    K, slab_rows, _, _ = decode_schedule(BATCH, 64, 64, 16)
+    nan = float('nan')
     hm = torch.rand(BATCH, 64, 64, 16, generator=gen)
     hm[0, 10, 10, 0] = hm[0, 12, 3, 0] = 5.0
+    hm[4, slab_rows - 1, 9, 5] = hm[4, slab_rows, 2, 5] = 5.0   # tie across slabs 0 and 1
     hm[1, 0, 5, 1] = 5.0
     hm[2, 30, 30, 2] = 5.0
     hm[2, 30, 31, 2] = hm[2, 30, 29, 2] = 0.5
     hm[3, :, :, 3] = 0.0
+    hm[5, 40, 17, 6] = nan
+    hm[6, 20, 20, 8] = hm[6, 20, 21, 8] = nan
+    hm[7, :, :, 9] = nan
     hm = hm.to(dev)
     (gc, gm), (rc, rm) = decode_peaks(hm), decode_peaks_reference(hm)
+    bc, bm = decode_v1(v1, hm)
     torch.cuda.synchronize()
-    check(torch.equal(gc, rc) and torch.equal(gm, rm), 'decode differs from its plain version')
+    check(same_nan_and_bits(gc, rc) and same_nan_and_bits(gm, rm),
+          'decode differs from its plain version')
+    check(same_nan_and_bits(bc, rc) and same_nan_and_bits(bm, rm),
+          'decode v1 differs from the plain version')
     check(gc[0, 0, 1].item() in (9.75, 10.0, 10.25), 'decode tie not first row-major')
+    check(gc[4, 5, 1].item() in (slab_rows - 1.25, slab_rows - 1.0, slab_rows - 0.75),
+          'decode tie across slabs not first row-major')
+    check(bool(gm[5, 6].isnan() and gm[6, 8].isnan() and gc[6, 8, 0].isnan()
+               and gm[7, 9].isnan() and gc[7, 9].tolist() == [0.0, 0.0]),
+          'decode: NaN not ranked first')
+    # the launch follows the batch: every cluster size a serving batch
+    # reaches (8 blocks an image at batch 1, 7, 6 and 5 at the partial
+    # batches 37, 48 and 60), each held exactly on a tie across its first
+    # two slabs and NaN before it is timed; batch 1's maps are timed below
+    checked = {}
+    for b in (1, 37, 48, 60):
+        k, slab, _, _ = decode_schedule(b, 64, 64, 16)
+        m = torch.rand(b, 64, 64, 16, generator=gen)
+        m[-1, slab - 1, 9, 5] = m[-1, slab, 2, 5] = 5.0
+        m[-1, 40, 17, 6] = nan
+        m[0, 20, 20, 8] = m[0, 20, 21, 8] = nan
+        m = m.to(dev)
+        (bc, bm), (rc1, rm1) = decode_peaks(m), decode_peaks_reference(m)
+        torch.cuda.synchronize()
+        check(same_nan_and_bits(bc, rc1) and same_nan_and_bits(bm, rm1),
+              f'decode at batch {b} (clusters of {k}) differs from its plain version')
+        check(bc[-1, 5, 1].item() in (slab - 1.25, slab - 1.0, slab - 0.75),
+              f'decode at batch {b}: tie across slabs not first row-major')
+        check(bool(bm[-1, 6].isnan() and bc[0, 8, 0].isnan()),
+              f'decode at batch {b}: NaN not ranked first')
+        checked[b] = k
+        if b == 1:
+            one = m
+    del m, bc, bm, rc1, rm1
+    times = in_turns({'before': lambda h: decode_v1(v1, h), 'ms': decode_peaks}, (hm,))
+    times1 = in_turns({'before': lambda h: decode_v1(v1, h), 'ms': decode_peaks}, (one,))
     nbytes = 4.0 * (hm.numel() + gc.numel() + gm.numel())
     rows.append(kernel_row(
         'decode_peaks', 'decode.cu', 'decode.py:61', torch.cat([gc.flatten(), gm.flatten()]),
-        torch.cat([rc.flatten(), rm.flatten()]),
-        time_ms(lambda: decode_peaks(hm), 50),
+        torch.cat([rc.flatten(), rm.flatten()]), times['ms'],
         time_ms(lambda: decode_peaks_reference(hm), 20),
         bound_ms(hm.numel(), nbytes, PEAK_F32), None, shape='[64,64,64,16] f32',
+        before_ms=times['before']['cold'], before_ms_hot=times['before']['hot'],
+        schedule=dict(K=K, rows=slab_rows), exact_at_batch_K=checked,
+        b1=dict(shape='[1,64,64,16] f32', ms=times1['ms']['cold'], ms_hot=times1['ms']['hot'],
+                before_ms=times1['before']['cold'], before_ms_hot=times1['before']['hot'],
+                bound_ms=bound_ms(one.numel(), 4.0 * (one.numel() + 48), PEAK_F32)[0]),
         library='none: no one PyTorch call takes the argmax with its offsets'))
+    print('decode: ' + json.dumps(rows[-1]), flush=True)
     return rows
 
 
@@ -419,7 +634,7 @@ def plant_ties_(x) -> None:
     x[0, 6:8, 0:2, :16] = torch.tensor([[0.5, 0.5], [0.25, 0.5]])[..., None]
 
 
-def training_kernel_phases(seed: int):
+def training_kernel_phases(seed: int, v1):
     """The training kernels vs their plain versions, at the train step's
     shapes: exact, except the render (within RENDER_MAX_ULP)."""
     import torch
@@ -444,15 +659,16 @@ def training_kernel_phases(seed: int):
         torch.cuda.synchronize()
         check(torch.equal(got, ref), f'upsample bwd g {tuple(g.shape)} differs from its plain version')
         if b == BATCH:
-            times[hw] = time_ms(lambda: upsample2x_add_bwd(g), 50)
+            times[hw] = cold_hot_ms(upsample2x_add_bwd, (g,))
     B, H2, W2, C = g.shape
-    lib = lambda: g.view(B, H2 // 2, 2, W2 // 2, 2, C).sum(dim=(2, 4))
+    lib = lambda g: g.view(B, H2 // 2, 2, W2 // 2, 2, C).sum(dim=(2, 4))
     nbytes = 2.0 * (g.numel() + got.numel())
     rows.append(kernel_row(
         'upsample2x_add_bwd', 'upsample.cu', 'upsample.py:44', got, ref, times[64],
         time_ms(lambda: upsample2x_add_bwd_reference(g), 20),
-        bound_ms(3.0 * got.numel(), nbytes, PEAK_F32), time_ms(lib, 50),
-        shape='g [64,64,64,256] bf16', ms_by_hw=times,
+        bound_ms(3.0 * got.numel(), nbytes, PEAK_F32), cold_hot_ms(lib, (g,)),
+        shape='g [64,64,64,256] bf16', ms_by_hw={hw: v['cold'] for hw, v in times.items()},
+        ms_hot_by_hw={hw: v['hot'] for hw, v in times.items()},
         library='torch.sum over the [B,H,2,W,2,C] view'))
     print('upsample bwd: ' + json.dumps(rows[-1]), flush=True)
     del g, got, ref
@@ -476,8 +692,8 @@ def training_kernel_phases(seed: int):
               f'pool fwd {tuple(x.shape)} differs from its plain version')
         check(torch.equal(dx, dref), f'pool bwd {tuple(x.shape)} differs from its plain version')
         if b == BATCH:
-            fwd_t[hw] = time_ms(lambda: maxpool2x2_fwd(x), 50)
-            bwd_t[hw] = time_ms(lambda: maxpool2x2_bwd(x, g), 50)
+            fwd_t[hw] = cold_hot_ms(maxpool2x2_fwd, (x,))
+            bwd_t[hw] = cold_hot_ms(maxpool2x2_bwd, (x, g))
     # the 4-way tie of the last shape splits its gradient in quarters
     q = (g[0, 2, 2, :].float() / 4).to(bf16)
     check(torch.equal(dx[0, 4:6, 4:6, :], q.expand(2, 2, -1)), 'pool bwd: 4-way tie not split')
@@ -498,8 +714,9 @@ def training_kernel_phases(seed: int):
         'maxpool2x2_fwd', 'pool.cu', 'pool.py:37', out, ref, fwd_t[64],
         time_ms(lambda: maxpool2x2_reference(x), 20),
         bound_ms(3.0 * out.numel(), nbytes, PEAK_F32),
-        time_ms(lambda: F.max_pool2d(xn, 2, 2), 50),
-        shape='x [64,64,64,256] bf16', ms_by_hw=fwd_t,
+        cold_hot_ms(lambda x: F.max_pool2d(x, 2, 2), (xn,)),
+        shape='x [64,64,64,256] bf16', ms_by_hw={hw: v['cold'] for hw, v in fwd_t.items()},
+        ms_hot_by_hw={hw: v['hot'] for hw, v in fwd_t.items()},
         library='F.max_pool2d(x, 2, 2), channels-last'))
     print('pool fwd: ' + json.dumps(rows[-1]), flush=True)
     nbytes = 2.0 * (2 * x.numel() + g.numel())
@@ -507,7 +724,8 @@ def training_kernel_phases(seed: int):
         'maxpool2x2_bwd', 'pool.cu', 'pool.py:43', dx, dref, bwd_t[64],
         time_ms(lambda: maxpool2x2_bwd_reference(x, g), 20),
         bound_ms(8.0 * g.numel(), nbytes, PEAK_F32), None,
-        shape='x [64,64,64,256] bf16', ms_by_hw=bwd_t, tied_windows=tied,
+        shape='x [64,64,64,256] bf16', ms_by_hw={hw: v['cold'] for hw, v in bwd_t.items()},
+        ms_hot_by_hw={hw: v['hot'] for hw, v in bwd_t.items()}, tied_windows=tied,
         dx_rel_l2_vs_route_to_one=route_gap,
         library="none: PyTorch's pool backward routes a tie's gradient to one "
                 'element, this one splits it equally'))
@@ -522,24 +740,29 @@ def training_kernel_phases(seed: int):
                                   [R + 20.0, 100.0]])
     vis = (torch.rand(BATCH, J, generator=gen) > 0.2).float()
     vis[1, :] = 0.0
-    mu, weight = render_preamble(joints.to(dev), vis.to(dev), (R // 4, R // 4), (R, R), 1)
-    got = render_gaussian(mu, weight, (R // 4, R // 4), 1)
-    ref = render_gaussian_reference(mu, weight, (R // 4, R // 4), 1)
+    size = (R // 4, R // 4)
+    mu, weight = render_preamble(joints.to(dev), vis.to(dev), size, (R, R), 1)
+    got = render_gaussian(mu, weight, size, 1)
+    ref = render_gaussian_reference(mu, weight, size, 1)
+    before = render_v1(v1, mu, weight, size, 1)
     torch.cuda.synchronize()
     check(bool((weight == 0).any() and (weight > 0).any()), 'render: no joint off the map')
     check(torch.equal(got > 0, ref > 0), 'render: windows differ from the plain version')
     ulps = int((got.view(torch.int32) - ref.view(torch.int32)).abs().max())
-    check(ulps <= RENDER_MAX_ULP, f'render: {ulps} ulp from the plain version')
+    check(ulps == 0, f'render at sigma 1: {ulps} ulp from the plain version, not equal')
+    check(torch.equal(before, ref), 'render v1 at sigma 1 differs from the plain version')
     n_exp = int((got > 0).sum())
     nbytes = 4.0 * (got.numel() + mu.numel() + weight.numel())
+    times = in_turns({'before': lambda m, w: render_v1(v1, m, w, size, 1),
+                      'ms': lambda m, w: render_gaussian(m, w, size, 1)}, (mu, weight))
     rows.append(kernel_row(
-        'render_gaussian', 'render.cu', 'render.py:21', got, ref,
-        time_ms(lambda: render_gaussian(mu, weight, (R // 4, R // 4), 1), 50),
-        time_ms(lambda: render_gaussian_reference(mu, weight, (R // 4, R // 4), 1), 20),
+        'render_gaussian', 'render.cu', 'render.py:21', got, ref, times['ms'],
+        time_ms(lambda: render_gaussian_reference(mu, weight, size, 1), 20),
         # a select per element, and the square, sum, scale and exp of each
         # rendered one
         bound_ms(got.numel() + 4.0 * n_exp, nbytes, PEAK_F32), None,
-        shape='[64,64,64,16] f32', max_ulp=ulps,
+        shape='[64,64,64,16] f32', max_ulp=ulps, before_ms=times['before']['cold'],
+        before_ms_hot=times['before']['hot'],
         library='none: no one PyTorch call renders windowed Gaussians'))
     print('render: ' + json.dumps(rows[-1]), flush=True)
     return rows
@@ -1013,8 +1236,8 @@ def profile_block(fn, what: str, unprofiled_ms: float, top: int = 14) -> None:
     """torch.profiler over one call of fn: wall time, device busy time and
     idle share (against the profiled wall, and against `unprofiled_ms`, the
     same call's p50 without the profiler), the largest kernels by device
-    time, the PyTorch ops that launched the most device time, and the
-    device time by kind of kernel."""
+    time, each of the port's kernels, the PyTorch ops that launched the
+    most device time, and the device time by kind of kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1036,6 +1259,10 @@ def profile_block(fn, what: str, unprofiled_ms: float, top: int = 14) -> None:
           f'{unprofiled_ms:.2f} ms: {max(0.0, 1 - busy / unprofiled_ms):.3f})', flush=True)
     for e in ev[:top]:
         print(f'  {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:90]}', flush=True)
+    for e in ev:
+        if any(n in e.key.lower() for n in PORT_KERNEL_NAMES):
+            print(f'  port kernel {e.device_time_total / 1e3:9.4f} ms {e.count:5d}x {e.key[:70]}',
+                  flush=True)
     ops = [e for e in avgs if e.device_type == DeviceType.CPU
            and getattr(e, 'self_device_time_total', 0) > 0]
     ops.sort(key=lambda e: -e.self_device_time_total)
@@ -1045,8 +1272,7 @@ def profile_block(fn, what: str, unprofiled_ms: float, top: int = 14) -> None:
     kinds = {}
     for e in ev:
         k = e.key.lower()
-        kind = ('port kernels' if any(n in k for n in (
-                    'upsample2x', 'maxpool2x2', 'render_gaussian', 'bottleneck', 'decode_peaks'))
+        kind = ('port kernels' if any(n in k for n in PORT_KERNEL_NAMES)
                 else 'convolution and GEMM' if any(n in k for n in (
                     'conv', 'gemm', 'xmma', 'sm90', 'cutlass', 'wgrad', 'dgrad', 'cudnn'))
                 else 'reductions' if 'reduce' in k
@@ -1095,16 +1321,19 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} device {kind}', flush=True)
 
-    # 2. build
+    # 2. build (the first-generation render and decode beside the package's
+    # kernels, every nvcc started together)
     t0 = time.time()
+    v1_build = start_nvcc(V1_SOURCE)
     lib = _build.library()
+    v1 = load_built(v1_build, v1_signatures())
     ptxas = [ln.strip() for ln in lib.build_log.splitlines()
              if 'registers' in ln or 'spill' in ln]
     print(f'build: {time.time() - t0:.1f} s; ' + ' | '.join(ptxas), flush=True)
 
     # 3. kernels vs plain
     with torch.no_grad():
-        rows = kernel_phases(args.seed) + training_kernel_phases(args.seed)
+        rows = kernel_phases(args.seed, v1) + training_kernel_phases(args.seed, v1)
     paths = {}
 
     # 4. the serving path at full width, built as serve_http builds it

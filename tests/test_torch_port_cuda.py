@@ -146,13 +146,61 @@ def test_upsample_kernel_is_exact(dev, h, c, dtype):
                        upsample2x_add_reference(low, skip))
 
 
-def test_decode_kernel_is_exact(dev):
-    hm = torch.rand(4, 16, 20, 17, device=dev)
+def _same(a, b):
+    """Equal bits, NaN where the other has NaN."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(nan=0.0), b.nan_to_num(nan=0.0)))
+
+
+@pytest.mark.parametrize('b,h,w,j', [(4, 16, 20, 17), (1, 64, 64, 16), (64, 64, 64, 16),
+                                     (1, 64, 64, 17), (64, 64, 64, 17), (3, 12, 20, 17),
+                                     (2, 12, 64, 16), (2, 13, 64, 16), (2, 12, 13, 17),
+                                     (37, 64, 64, 16), (48, 64, 64, 16), (60, 64, 64, 17)])
+def test_decode_kernel_is_exact(dev, b, h, w, j):
+    """Batch 1 and 64, the partial serving batches 37, 48 and 60
+    (clusters of 7, 6 and 5 blocks), J = 16 and 17, H = 12 and 13 (13
+    rows in slabs of 4 leave the last block 1), W * J odd (4-byte loads),
+    with planted ties (one across the first two blocks' slabs), edges, a
+    flat map and NaN; the kernel equals the plain version bit for bit."""
+    from hourglass_pose_estimation_torch.ops.hopper.decode import decode_schedule
+    K, rows, _, _ = decode_schedule(b, h, w, j)
+    gen = torch.Generator().manual_seed(b * 1000 + h * 10 + j)
+    hm = torch.rand(b, h, w, j, generator=gen)
     hm[0, 3, 3, 0] = hm[0, 5, 1, 0] = 9.0
-    hm[1, 0, 4, 1] = 9.0
-    hm[2, :, :, 2] = 0.0
+    hm[-1, 0, 4, 1] = 9.0
+    hm[0, :, :, 2] = 0.0
+    if K > 1:
+        hm[-1, rows - 1, w - 2, 3] = hm[-1, rows, 1, 3] = 9.0
+    hm[-1, h // 2, w // 2, 4] = float('nan')
+    hm = hm.to(dev)
+    before = decode_peaks.launches
     got, ref = decode_peaks(hm), decode_peaks_reference(hm)
-    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert decode_peaks.launches == before + 1
+    assert _same(got[0], ref[0]) and _same(got[1], ref[1])
+    assert got[0][0, 0].tolist() == [3.0 + float(torch.sign(hm[0, 3, 4, 0] - hm[0, 3, 2, 0])) * 0.25,
+                                     3.0 + float(torch.sign(hm[0, 4, 3, 0] - hm[0, 2, 3, 0])) * 0.25]
+    if K > 1:
+        assert got[0][-1, 3, 1].item() in (rows - 1.25, rows - 1.0, rows - 0.75)
+
+
+def test_decode_kernel_ranks_nan_first(dev):
+    """torch.argmax's and the XLA decoder's NaN rule: a NaN among numbers
+    wins over a larger finite peak, the first of two NaNs wins and its NaN
+    neighbour makes its x NaN, an all-NaN joint decodes to (0, 0) with
+    maxval NaN. The first-generation kernel returned the largest finite
+    value and its position, and a sign of 0 for a NaN gradient."""
+    nan = float('nan')
+    hm = torch.rand(2, 16, 16, 16, generator=torch.Generator().manual_seed(5))
+    hm[0, 9, 9, 0] = 5.0
+    hm[0, 3, 4, 0] = nan
+    hm[0, 7, 7, 1] = hm[0, 7, 8, 1] = nan
+    hm[1, :, :, 2] = nan
+    hm = hm.to(dev)
+    (gc, gm), (rc, rm) = decode_peaks(hm), decode_peaks_reference(hm)
+    assert _same(gc, rc) and _same(gm, rm)
+    assert gm[0, 0].isnan() and gc[0, 0, 0].item() == 4.0 + float(torch.sign(hm[0, 3, 5, 0] - hm[0, 3, 3, 0])) * 0.25
+    assert gc[0, 1, 0].isnan() and not gc[0, 1, 1].isnan()
+    assert gm[1, 2].isnan() and gc[1, 2].tolist() == [0.0, 0.0]
 
 
 def test_kernel_wrappers_raise_on_layouts_they_do_not_take(dev):
@@ -219,17 +267,31 @@ def test_pool_kernels_are_exact(dev, b, h, c, dtype):
     assert torch.equal(dx[0, 0:2, 0:2, :], (g[0, 0, 0].float() / 4).to(dtype).expand(2, 2, -1))
 
 
-def test_render_kernel_within_one_ulp(dev):
-    gen = torch.Generator().manual_seed(0)
-    joints = torch.rand(4, 16, 2, generator=gen) * 90 - 13
-    joints[0, :3] = torch.tensor([[0.0, 0.0], [63.0, 63.0], [-20.0, 70.0]])
-    vis = (torch.rand(4, 16, generator=gen) > 0.2).float()
-    for sigma in (1, 2):
-        mu, w = render_preamble(joints.to(dev), vis.to(dev), (16, 16), (64, 64), sigma)
-        got = render_gaussian(mu, w, (16, 16), sigma)
-        ref = render_gaussian_reference(mu, w, (16, 16), sigma)
-        assert torch.equal(got > 0, ref > 0) and bool((got > 0).any())
-        assert int((got.view(torch.int32) - ref.view(torch.int32)).abs().max()) <= 1
+@pytest.mark.parametrize('b,hm,img,j,sigma', [
+    (4, (16, 16), (64, 64), 16, 1), (4, (16, 16), (64, 64), 16, 2),
+    (3, (12, 20), (48, 80), 17, 1), (2, (13, 20), (52, 80), 17, 2),
+    (1, (64, 64), (256, 256), 16, 1), (64, (64, 64), (256, 256), 17, 1),
+    (2, (64, 64), (256, 256), 16, 2)])
+def test_render_kernel_within_one_ulp(dev, b, hm, img, j, sigma):
+    """J = 16 and 17, a 12x20 map and a 13-wide one at J = 17 (W * J = 221:
+    rows that do not start on 16 bytes), sigma 1 and 2, batch 1 and 64:
+    the same windows, at most 1 ulp from the plain version (expf against
+    torch.exp), equal at sigma 1."""
+    gen = torch.Generator().manual_seed(b * 100 + j)
+    W, H = img
+    joints = torch.rand(b, j, 2, generator=gen) * torch.tensor([1.4 * W, 1.4 * H]) \
+        - torch.tensor([0.2 * W, 0.2 * H])
+    joints[0, :3] = torch.tensor([[0.0, 0.0], [W - 1.0, H - 1.0], [-20.0, H + 6.0]])
+    vis = (torch.rand(b, j, generator=gen) > 0.2).float()
+    mu, w = render_preamble(joints.to(dev), vis.to(dev), hm, img, sigma)
+    before = render_gaussian.launches
+    got = render_gaussian(mu, w, hm, sigma)
+    assert render_gaussian.launches == before + 1
+    ref = render_gaussian_reference(mu, w, hm, sigma)
+    assert got.shape == (b, hm[1], hm[0], j)
+    assert torch.equal(got > 0, ref > 0) and bool((got > 0).any())
+    ulps = int((got.view(torch.int32) - ref.view(torch.int32)).abs().max())
+    assert ulps <= (0 if sigma == 1 else 1)
 
 
 def test_gradients_flow_through_the_autograd_functions(dev):

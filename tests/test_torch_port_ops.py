@@ -24,6 +24,8 @@ from hourglass_pose_estimation_torch.ops import resize as tresize
 from hourglass_pose_estimation_torch.ops.hopper import bottleneck as tbneck
 from hourglass_pose_estimation_torch.ops.hopper import (
     decode_peaks, upsample2x_add)
+from hourglass_pose_estimation_torch.ops.hopper.decode import (
+    MAX_CLUSTER, decode_schedule)
 from hourglass_pose_estimation_torch.utils import transforms as ttf
 
 torch.set_num_threads(1)
@@ -141,6 +143,85 @@ def test_decode_quarter_offset_matches_xla(rng):
     tc, tv = tdecode.get_preds_zero_based(torch.from_numpy(hm))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+# --- NaN. The port follows the XLA decoder, which the JAX serving function
+# runs (`export/__init__.py` decodes with decode_quarter_offset(zero_based=
+# True)): its argmax, like torch.argmax, ranks NaN above every number and
+# takes the first NaN, its maxval is NaN, and jnp.sign keeps a NaN
+# gradient (torch.sign gives 0, so the plain version keeps the NaN
+# itself). The Pallas kernel, which only tools and tests call, has a third
+# behaviour: with a NaN max its `hm >= max` holds nowhere, idx = H*W, and
+# the coords read (0, H).
+
+def _nan_maps(case, J):
+    """Maps from their own stream, so the module `rng`'s draws that later
+    tests in this file take do not depend on these cases."""
+    hm = np.random.RandomState(J).uniform(0, 1, size=(2, 16, 20, J)).astype(np.float32)
+    if case == 'nan_among_numbers':            # beats a larger finite peak
+        hm[0, 9, 9, 0] = 5.0
+        hm[0, 5, 7, 0] = np.nan
+        hm[1, 12, 3, J - 1] = np.nan
+    elif case == 'nan_beside_peak':            # the NaN wins; the peak is its neighbour
+        hm[0, 9, 9, 1] = 5.0
+        hm[0, 9, 10, 1] = np.nan
+    elif case == 'nan_pair':                   # the first wins; the second makes gx NaN
+        hm[1, 6, 6, 2] = hm[1, 6, 7, 2] = np.nan
+    elif case == 'all_nan':                    # argmax 0: the edge gate is shut
+        hm[1, :, :, 3] = np.nan
+    return hm
+
+
+@pytest.mark.parametrize('J', [16, 17])
+@pytest.mark.parametrize('case', ['nan_among_numbers', 'nan_beside_peak', 'nan_pair', 'all_nan'])
+def test_decode_nan_matches_xla(case, J):
+    """The plain decode against the XLA decode_quarter_offset(zero_based=
+    True) and get_preds_zero_based on maps holding NaN: equal bits, NaN in
+    the same places (at the affine of a box the map's own size, and at the
+    serving function's 256^2 one)."""
+    hm = _nan_maps(case, J)
+    B = hm.shape[0]
+    for center, scale in (((10.0, 8.0), (0.1, 0.08)), ((128.0, 128.0), (1.28, 1.28))):
+        centers = np.tile(np.array(center, np.float32), (B, 1))
+        scales = np.tile(np.array(scale, np.float32), (B, 1))
+        jk, jm = jdecode.decode_quarter_offset(hm, centers, scales, zero_based=True)
+        tk, tm = tdecode.decode_quarter_offset(torch.from_numpy(hm), centers, scales,
+                                               zero_based=True)
+        np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    assert np.isnan(tm.numpy()).any()
+    if case == 'nan_pair':
+        assert np.isnan(tk.numpy()[1, 2]).all()       # x NaN, then both through the affine
+    if case == 'all_nan':
+        pc, _ = decode_peaks(torch.from_numpy(hm))
+        assert pc[1, 3].tolist() == [0.0, 0.0]
+    jc, jv = jdecode.get_preds_zero_based(jnp.asarray(hm))
+    tc, tv = tdecode.get_preds_zero_based(torch.from_numpy(hm))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize('B', [1, 37, 48, 60, 64])
+@pytest.mark.parametrize('H', [12, 16, 64])
+def test_decode_schedule_covers_every_row_once(H, B):
+    """The kernel's launch, a pure function of the shape: at most 8 blocks
+    an image (a portable cluster), every row in exactly one block's slab,
+    no empty block, and L * T a multiple of J (each thread's lanes keep
+    their joints); at the flagship [B, 64, 64, 16] 8 blocks of 8 rows at
+    batch 1, 7, 6 and 5 blocks at the partial serving batches 37, 48 and
+    60, and 4 blocks of 16 rows at batch 64 (about 256 blocks)."""
+    for W, J in ((64, 16), (64, 17), (13, 17), (20, 16)):
+        K, rows, T, L = decode_schedule(B, H, W, J)
+        assert 1 <= K <= MAX_CLUSTER and rows >= 1
+        slabs = [range(k * rows, min(H, (k + 1) * rows)) for k in range(K)]
+        assert all(len(s) > 0 for s in slabs)
+        assert sorted(r for s in slabs for r in s) == list(range(H))
+        assert L == (4 if W * J % 4 == 0 else 1) and (L * T) % J == 0 and 32 <= T <= 1024
+        assert decode_schedule(B, H, W, J, aligned=False)[3] == 1
+    assert decode_schedule(B, 64, 64, 16) == {1: (8, 8, 256, 4), 37: (7, 10, 256, 4),
+                                              48: (6, 11, 256, 4), 60: (5, 13, 256, 4),
+                                              64: (4, 16, 256, 4)}[B]
+    assert decode_schedule(B, 12, 64, 16)[:2] == (3, 4)
 
 
 def test_decode_unported_modes_raise():

@@ -130,11 +130,21 @@ def test_accuracy_matches_jax(rng):
 # weights and windows; the values are torch's exp against XLA's: equal at
 # sigma = 1 (the flagship's), within 1 ulp of f32 otherwise.
 
-@pytest.mark.parametrize('sigma,hm,img', [(1, (16, 16), (64, 64)),
-                                          (2, (64, 64), (256, 256)),
-                                          (1, (12, 20), (48, 80))])
-def test_render_plain_matches_jax_and_pallas_exactly(rng, sigma, hm, img):
-    B, J = 4, 16
+@pytest.mark.parametrize('sigma,hm,img,J', [(1, (16, 16), (64, 64), 16),
+                                            (2, (64, 64), (256, 256), 16),
+                                            (1, (12, 20), (48, 80), 16),
+                                            (1, (12, 20), (48, 80), 17),
+                                            (2, (13, 20), (52, 80), 17)],
+                         ids=['1-hm0-img0', '2-hm1-img1', '1-hm2-img2', 'J17-12x20',
+                              'J17-13x20-WJ-odd'])
+def test_render_plain_matches_jax_and_pallas_exactly(rng, sigma, hm, img, J):
+    """J = 17 (COCO) too, and a 13-wide map at J = 17: W * J = 221, so the
+    kernel's rows do not start on 16 bytes. The J = 17 cases draw from
+    their own stream, so the module `rng`'s draws that later tests in
+    this file take do not depend on them."""
+    B = 4
+    if J != 16:
+        rng = np.random.RandomState(J * 100 + hm[0])
     joints = rng.uniform(-0.3 * img[0], 1.3 * img[0], size=(B, J, 2)).astype(np.float32)
     joints[0, :4] = [[0, 0], [img[0] - 1, img[1] - 1], [-2, 5], [img[0] + 3, 7]]
     vis = (rng.uniform(size=(B, J)) > 0.2).astype(np.float32)
