@@ -4,10 +4,9 @@ Parses the same YAML sections and keys as `hourglass_pose_estimation_tpu/
 config.py` (DATASET / MODEL / TRAIN / COMMON / EVAL, `SECTION.key=value`
 overrides), so one config file drives both packages: every key of the JAX
 package, with its default and validation. Keys that ask for what the port
-has not got yet (several devices, the host cv2 pipeline, the standalone
-evaluator) parse here and are refused, with the ROADMAP item that brings
-them, by the entry point that would read them. One default differs:
-MODEL.fuse_block is on.
+has not got yet (several devices, the host cv2 pipeline) parse here and
+are refused, with the ROADMAP item that brings them, by the entry point
+that would read them. One default differs: MODEL.fuse_block is on.
 """
 
 from __future__ import annotations

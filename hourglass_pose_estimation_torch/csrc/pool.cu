@@ -1,4 +1,5 @@
-// 2x2 stride-2 max-pool, forward and backward (ties share the gradient).
+// 2x2 stride-2 max-pool, forward and backward (ties share the gradient, or
+// the first maximum takes it).
 //
 // Replaces the TPU kernel `hourglass_pose_estimation_tpu/ops/pallas/
 // pool.py::maxpool2x2_pallas`:
@@ -6,9 +7,14 @@
 //     out[b, y, x, c] = max_{i, j in {0, 1}} x[b, 2y + i, 2x + j, c]
 //   backward (`_bwd_kernel`): recompute the window max m from x, then
 //     dx[b, 2y + i, 2x + j, c] = g[b, y, x, c] / ties * [x == m]
-//     with ties = how many of the four equal m. The gradient is split
-//     equally among tied maxima (PyTorch's and XLA's pools route it to one
-//     of them); without ties both conventions agree.
+//     with ties = how many of the four equal m: the gradient is split
+//     equally among tied maxima, the Pallas convention.
+//   backward, first-maximum mode: dx = g at the first of the window's four
+//     elements in row-major order ((0,0), (0,1), (1,0), (1,1)) that equals m,
+//     0 at the other three. That is the gradient of the JAX model's
+//     `nn.max_pool` (XLA's select-and-scatter) and of `F.max_pool2d`, on
+//     finite inputs; the model's pools take this mode. Without ties the two
+//     modes agree.
 // x/dx [B, H, W, C], out/g [B, H/2, W/2, C], NHWC, bf16 or f32, H and W even.
 //
 // What bounds it: device-memory bytes; both directions do a handful of
@@ -17,8 +23,9 @@
 // 16-byte vector along C of the pooled grid (8 bf16 or 4 f32 channels) and
 // the four matching vectors of the window, so neighbouring threads touch
 // neighbouring addresses. Values are compared in f32 (exact for bf16); the
-// backward divides in f32 and rounds once to the storage type, which is
-// what the Pallas kernel's bf16 division gives.
+// split backward divides in f32 and rounds once to the storage type, which
+// is what the Pallas kernel's bf16 division gives; the first-maximum one
+// copies g.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +97,7 @@ __global__ void maxpool2x2_fwd_kernel(const uint4* __restrict__ x,
   }
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kFirstMax>
 __global__ void maxpool2x2_bwd_kernel(const uint4* __restrict__ x,
                                       const uint4* __restrict__ g,
                                       uint4* __restrict__ dx, long long nvec,
@@ -114,12 +121,22 @@ __global__ void maxpool2x2_bwd_kernel(const uint4* __restrict__ x,
         f[i] = L::get(t[i], k);
         m = f[i] > m ? f[i] : m;
       }
-      float ties = 0.f;
+      if (kFirstMax) {
+        bool taken = false;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ties += (f[i] == m) ? 1.f : 0.f;
-      float share = L::get(gv, k) / ties;
+        for (int i = 0; i < 4; ++i) {
+          bool first = !taken && f[i] == m;
+          taken = taken || first;
+          L::set(r[i], k, first ? L::get(gv, k) : 0.f);
+        }
+      } else {
+        float ties = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) L::set(r[i], k, f[i] == m ? share : 0.f);
+        for (int i = 0; i < 4; ++i) ties += (f[i] == m) ? 1.f : 0.f;
+        float share = L::get(gv, k) / ties;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) L::set(r[i], k, f[i] == m ? share : 0.f);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) dx[at[i]] = r[i];
@@ -157,22 +174,28 @@ extern "C" int hpe_maxpool2x2_fwd(const void* x, void* out, int B, int H,
 }
 
 // (x [B, H, W, C], g [B, H/2, W/2, C]) -> dx [B, H, W, C]; the same
-// conditions as the forward. Every element of dx is written.
+// conditions as the forward; first_max: 1 for the first-maximum mode, 0 to
+// split ties. Every element of dx is written.
 extern "C" int hpe_maxpool2x2_bwd(const void* x, const void* g, void* dx,
                                   int B, int H, int W, int C, int elem_bytes,
-                                  int num_sms, void* stream) {
+                                  int first_max, int num_sms, void* stream) {
   if ((elem_bytes != 2 && elem_bytes != 4) || (C * elem_bytes) % 16 != 0 ||
-      H % 2 != 0 || W % 2 != 0)
+      H % 2 != 0 || W % 2 != 0 || (first_max != 0 && first_max != 1))
     return (int)cudaErrorInvalidValue;
   const int CV = C * elem_bytes / 16, Ho = H / 2, Wo = W / 2;
   const long long nvec = (long long)B * Ho * Wo * CV;
   if (nvec == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (elem_bytes == 2)
-    maxpool2x2_bwd_kernel<true><<<grid_for(nvec, num_sms), 256, 0, s>>>(
-        (const uint4*)x, (const uint4*)g, (uint4*)dx, nvec, Ho, Wo, CV);
+  const int grid = grid_for(nvec, num_sms);
+  const uint4 *xv = (const uint4*)x, *gv = (const uint4*)g;
+  uint4* dxv = (uint4*)dx;
+  if (elem_bytes == 2 && first_max)
+    maxpool2x2_bwd_kernel<true, true><<<grid, 256, 0, s>>>(xv, gv, dxv, nvec, Ho, Wo, CV);
+  else if (elem_bytes == 2)
+    maxpool2x2_bwd_kernel<true, false><<<grid, 256, 0, s>>>(xv, gv, dxv, nvec, Ho, Wo, CV);
+  else if (first_max)
+    maxpool2x2_bwd_kernel<false, true><<<grid, 256, 0, s>>>(xv, gv, dxv, nvec, Ho, Wo, CV);
   else
-    maxpool2x2_bwd_kernel<false><<<grid_for(nvec, num_sms), 256, 0, s>>>(
-        (const uint4*)x, (const uint4*)g, (uint4*)dx, nvec, Ho, Wo, CV);
+    maxpool2x2_bwd_kernel<false, false><<<grid, 256, 0, s>>>(xv, gv, dxv, nvec, Ho, Wo, CV);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """On-device augmentation + target rendering.
 
 Port of `hourglass_pose_estimation_tpu/data/pipeline.py` (`PipelineSpec`,
-`make_spec`, `sample_augmentations`, `augment_batch`): given a batch of
+`make_spec`, `sample_augmentations`, `augment_batch`, and `crop_batch`,
+its steps 1-4 and the joints: the crops alone): given a batch of
 uint8 canvases and person geometry, on the batch's device,
 
   1. the flip, scale and rotation draws (`sample_augmentations`, from an
@@ -81,18 +82,19 @@ def to_device(batch, device) -> dict:
             for k, v in batch.items()}
 
 
-def augment_batch(batch, draws, spec: PipelineSpec, train: bool) -> dict:
-    """Canvases -> normalised inputs, targets and weights, on the batch's
-    device.
+def crop_batch(batch, draws, spec: PipelineSpec, train: bool) -> dict:
+    """Canvases -> normalised inputs and their geometry, on the batch's
+    device: `augment_batch` without the targets (what a forward that
+    needs no loss reads).
 
     batch: `PoseDataset.canvas_batch` as tensors (see `to_device`):
       canvas [B, S, S, 3] uint8, canvas_scale [B], canvas_offset [B, 2],
       center [B, 2], scale [B, 2], joints [B, J, 2], vis [B, J], width [B].
     draws: (scales [B, 2], rots [B], flips [B] bool) from
       `sample_augmentations`.
-    Returns image [B, R, R, 3] f32, target [B, h, w, J] f32,
-    target_weight [B, J], joints_input [B, J, 2], and the post-augmentation
-    center, scale and rotation."""
+    Returns image [B, R, R, 3] f32, joints_input [B, J, 2], vis [B, J]
+    (flipped with the joints), and the post-augmentation center, scale
+    and rotation."""
     f32 = torch.float32
     R = spec.inp_res
     canvas = batch['canvas']
@@ -139,10 +141,19 @@ def augment_batch(batch, draws, spec: PipelineSpec, train: bool) -> dict:
     std = torch.tensor(spec.std, dtype=f32, device=dev)
     imgs = (imgs / 255.0 - mean) / std
 
-    joints_inp = batched_apply_affine(joints_f, fwd)
+    return {'image': imgs, 'joints_input': batched_apply_affine(joints_f, fwd),
+            'vis': vis_f, 'center': centers_f, 'scale': scales_a, 'rotation': rots}
+
+
+def augment_batch(batch, draws, spec: PipelineSpec, train: bool) -> dict:
+    """Canvases -> normalised inputs, targets and weights, on the batch's
+    device: `crop_batch`, then the Gaussian targets of the cropped joints.
+    Returns image [B, R, R, 3] f32, target [B, h, w, J] f32,
+    target_weight [B, J], joints_input [B, J, 2], and the post-augmentation
+    center, scale and rotation."""
+    data = crop_batch(batch, draws, spec, train)
+    R = spec.inp_res
     target, tw = render_gaussian_targets(
-        joints_inp, vis_f, heatmap_size=(spec.out_res, spec.out_res),
+        data['joints_input'], data.pop('vis'), heatmap_size=(spec.out_res, spec.out_res),
         image_size=(R, R), sigma=spec.sigma)
-    return {'image': imgs, 'target': target, 'target_weight': tw,
-            'joints_input': joints_inp, 'center': centers_f,
-            'scale': scales_a, 'rotation': rots}
+    return dict(data, target=target, target_weight=tw)

@@ -58,6 +58,9 @@ class Synthetic(PoseDataset):
     name = 'synthetic'
     n_joints = 16
     flip_pairs = [[0, 5], [1, 4], [2, 3], [10, 15], [11, 14], [12, 13]]
+    # the stored scale is res/200 with no 1.25 box expansion (unlike the
+    # mpii and coco readers): the OKS area must not divide one out
+    scale_stored_expand = 1.0
 
     def __init__(self, is_train: bool, *, num_samples=512, **kwargs):
         self._num_samples = int(num_samples)

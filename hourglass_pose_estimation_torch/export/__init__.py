@@ -3,8 +3,8 @@
 Port of `hourglass_pose_estimation_tpu/export/__init__.py::
 fold_batchnorm` and `make_inference_fn`. The returned callable runs
 uint8 frames -> /255 -> half-pixel bilinear resize -> mean/std normalize
--> the model's last-stack heatmaps -> (optionally) the quarter-offset
-decode and the inverse affine to network-input pixels, on one device.
+-> the model's last-stack heatmaps -> (optionally) the quarter-offset or
+DARK decode and the inverse affine to network-input pixels, on one device.
 Everything that does not depend on the frames (BN folding, the weight
 cast) is done once, when it is built; the fused kernels' parameters are
 folded at the first call and kept while the weights stay as they are.
@@ -23,7 +23,7 @@ import torch
 from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.models.modules import Conv
 from hourglass_pose_estimation_torch.models.norm import BatchNorm
-from hourglass_pose_estimation_torch.ops.decode import decode_quarter_offset
+from hourglass_pose_estimation_torch.ops.decode import decode_dark, decode_quarter_offset
 from hourglass_pose_estimation_torch.ops.resize import resize_bilinear_halfpix
 from hourglass_pose_estimation_torch.weights import load_jax_variables
 
@@ -54,16 +54,15 @@ def make_inference_fn(model: torch.nn.Module, variables_or_state=None,
     `state_dict`, or None for the model's own weights. The model is
     copied; the caller's model is left as it is.
     decode=None returns last-stack heatmaps [B, H/4, W/4, J];
-    decode='quarter' returns (keypoints [B, J, 2] in network-input
-    pixels, maxvals [B, J]). fold_bn folds BatchNorm statistics;
+    decode='quarter' (the decode kernel on the card) or 'dark' returns
+    (keypoints [B, J, 2] in network-input pixels, maxvals [B, J]), both
+    0-based. fold_bn folds BatchNorm statistics;
     weights_dtype (e.g. torch.bfloat16) casts the conv weights.
     preprocess=(mean, std) with input_res: the callable takes RAW uint8
     BGR frames [B, H, W, 3] of any size and runs /255 -> resize to
     input_res^2 -> normalize itself. Results stay on `device`."""
-    if decode not in (None, 'quarter'):
-        raise NotImplementedError(f'decode={decode!r}: only None and '
-                                  "'quarter' are ported (DARK comes with the "
-                                  'eval slice)')
+    if decode not in (None, 'quarter', 'dark'):
+        raise ValueError(f"decode must be None, 'quarter' or 'dark', got {decode!r}")
     if preprocess is not None and input_res is None:
         raise ValueError('preprocess requires input_res')
     dev = resolve_device(device)
@@ -100,7 +99,8 @@ def make_inference_fn(model: torch.nn.Module, variables_or_state=None,
         B, R = hms.shape[0], x.shape[1]
         centers = torch.full((B, 2), R / 2.0, dtype=torch.float32, device=dev)
         scales = torch.full((B, 2), R / 200.0, dtype=torch.float32, device=dev)
-        return decode_quarter_offset(hms, centers, scales, zero_based=True)
+        decoder = decode_dark if decode == 'dark' else decode_quarter_offset
+        return decoder(hms, centers, scales, zero_based=True)
 
     return fn
 

@@ -35,9 +35,9 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 def max_pool(x: torch.Tensor, kernel: bool) -> torch.Tensor:
     """2x2 stride-2 max-pool of an NCHW (channels-last) tensor: through the
-    pool kernel's differentiable wrapper (`ops/hopper/pool.py`, which
-    splits the gradient among tied maxima) when `kernel`, else
-    `F.max_pool2d` (the JAX package's `nn.max_pool`)."""
+    pool kernel's differentiable wrapper (`ops/hopper/pool.py`) when
+    `kernel`, else `F.max_pool2d`. Both give a window's gradient to its
+    first maximum, as the JAX package's `nn.max_pool` does."""
     if not kernel:
         return F.max_pool2d(x, 2, 2)
     return maxpool2x2(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
@@ -45,7 +45,12 @@ def max_pool(x: torch.Tensor, kernel: bool) -> torch.Tensor:
 
 class Conv(nn.Conv2d):
     """`flax.linen.Conv` as the JAX models use it: f32 parameters, the
-    product computed in `dtype`, 'same' padding k // 2, bias."""
+    product computed in `dtype`, 'same' padding k // 2, bias. As in flax,
+    the bias is added to the product after it is rounded to `dtype`: in
+    bf16 that is a second rounding. `F.conv2d` given the bias takes it
+    into the product's sum on the CPU (oneDNN), which leaves 30% of a bf16
+    conv's outputs one bf16 step away; on the card it adds the bias after
+    the product, as here."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1,
                  groups: int = 1, dtype=torch.bfloat16):
@@ -55,8 +60,9 @@ class Conv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        self.stride, self.padding, 1, self.groups)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None,
+                     self.stride, self.padding, 1, self.groups)
+        return y + self.bias.to(dt)[:, None, None]
 
 
 class Bottleneck(nn.Module):

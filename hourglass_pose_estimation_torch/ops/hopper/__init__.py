@@ -13,7 +13,8 @@ from hourglass_pose_estimation_torch.ops.hopper.bottleneck import (
 from hourglass_pose_estimation_torch.ops.hopper.decode import (
     decode_peaks, decode_peaks_reference)
 from hourglass_pose_estimation_torch.ops.hopper.pool import (
-    maxpool2x2, maxpool2x2_bwd, maxpool2x2_bwd_reference, maxpool2x2_fwd,
+    maxpool2x2, maxpool2x2_bwd, maxpool2x2_bwd_first,
+    maxpool2x2_bwd_first_reference, maxpool2x2_bwd_reference, maxpool2x2_fwd,
     maxpool2x2_reference)
 from hourglass_pose_estimation_torch.ops.hopper.render import (
     render_gaussian, render_gaussian_reference)
@@ -25,4 +26,4 @@ from hourglass_pose_estimation_torch.ops.hopper.upsample import (
 KERNEL_WRAPPERS = (fused_bottleneck_image, fused_bottleneck_chunked,
                    upsample2x_add, decode_peaks,
                    upsample2x_add_bwd, maxpool2x2_fwd, maxpool2x2_bwd,
-                   render_gaussian)
+                   maxpool2x2_bwd_first, render_gaussian)

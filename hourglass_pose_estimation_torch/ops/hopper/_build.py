@@ -40,7 +40,7 @@ SIGNATURES = {
     'hpe_upsample2x_add': [_P, _P, _P] + [_I] * 6 + [_P],
     'hpe_upsample2x_add_bwd': [_P, _P] + [_I] * 6 + [_P],
     'hpe_maxpool2x2_fwd': [_P, _P] + [_I] * 6 + [_P],
-    'hpe_maxpool2x2_bwd': [_P, _P, _P] + [_I] * 6 + [_P],
+    'hpe_maxpool2x2_bwd': [_P, _P, _P] + [_I] * 7 + [_P],
     'hpe_render_gaussian': [_P, _P, _P] + [_I] * 5 + [_F, _I, _P],
     'hpe_decode_peaks': [_P, _P, _P] + [_I] * 8 + [_P],
 }

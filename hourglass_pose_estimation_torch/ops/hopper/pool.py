@@ -1,12 +1,15 @@
-"""2x2 stride-2 max-pool with a tie-splitting backward: Hopper kernels +
+"""2x2 stride-2 max-pool and its backward in two modes: Hopper kernels +
 plain versions.
 
 Port of `hourglass_pose_estimation_tpu/ops/pallas/pool.py::
 maxpool2x2_pallas` and its custom VJP. The kernels are `csrc/pool.cu`;
 its header says what bounds them. The forward equals
-`F.max_pool2d(x, 2, 2)` exactly; the backward recomputes the window max
-and splits g equally among tied maxima (the Pallas convention; PyTorch's
-pool backward routes it to one of them).
+`F.max_pool2d(x, 2, 2)` exactly. The backward recomputes the window max
+and either splits g equally among tied maxima (`maxpool2x2_bwd`, the
+Pallas convention, held to `maxpool2x2_pallas`) or gives all of g to the
+first maximum in row-major order (`maxpool2x2_bwd_first`, the gradient of
+the JAX model's `nn.max_pool` and of `F.max_pool2d`; the model's pools
+take this one).
 """
 
 from __future__ import annotations
@@ -39,6 +42,18 @@ def maxpool2x2_bwd_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return dx.to(x.dtype).reshape(x.shape)
 
 
+def maxpool2x2_bwd_first_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain version of the first-maximum backward: dx = g at the first
+    element of each window, in row-major order, that equals its max; 0
+    elsewhere."""
+    B, H, W, C = x.shape
+    xw = _windows(x).permute(0, 1, 3, 5, 2, 4).reshape(B, H // 2, W // 2, C, 4)
+    first = torch.nn.functional.one_hot(xw.argmax(dim=-1), 4).to(torch.bool)
+    dx = torch.where(first, g[..., None].to(x.dtype), torch.zeros((), dtype=x.dtype))
+    return (dx.reshape(B, H // 2, W // 2, C, 2, 2).permute(0, 1, 4, 2, 5, 3)
+            .reshape(x.shape))
+
+
 def maxpool2x2_fwd(x: torch.Tensor) -> torch.Tensor:
     """Forward, x [B, H, W, C] NHWC with H, W even -> [B, H/2, W/2, C].
 
@@ -58,44 +73,74 @@ def maxpool2x2_fwd(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _bwd(x: torch.Tensor, g: torch.Tensor, first_max: bool) -> torch.Tensor:
+    """Launch the backward kernel in one of its modes (CUDA tensors)."""
+    B, H, W, C = x.shape
+    _windows(x)
+    what = 'maxpool2x2_bwd_first' if first_max else 'maxpool2x2_bwd'
+    if tuple(g.shape) != (B, H // 2, W // 2, C):
+        raise ValueError(f'{what}: x {tuple(x.shape)}, g {tuple(g.shape)}')
+    esize = _check_vectors(what, x, g)
+    dx = torch.empty_like(x)
+    err = _build.library().hpe_maxpool2x2_bwd(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), B, H, W, C, esize,
+        int(first_max), _build.num_sms(x), _build.stream_for(x))
+    _build.check(err, what)
+    return dx
+
+
 def maxpool2x2_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Backward, (x [B, H, W, C], g [B, H/2, W/2, C]) -> dx [B, H, W, C].
+    """Backward splitting ties, (x [B, H, W, C], g [B, H/2, W/2, C]) -> dx
+    [B, H, W, C].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in `maxpool2x2_bwd.launches`) or raise."""
     if x.device.type == 'cpu' and g.device.type == 'cpu':
         return maxpool2x2_bwd_reference(x, g)
-    B, H, W, C = x.shape
-    _windows(x)
-    if tuple(g.shape) != (B, H // 2, W // 2, C):
-        raise ValueError(f'maxpool2x2_bwd: x {tuple(x.shape)}, g {tuple(g.shape)}')
-    esize = _check_vectors('maxpool2x2_bwd', x, g)
-    dx = torch.empty_like(x)
-    err = _build.library().hpe_maxpool2x2_bwd(
-        x.data_ptr(), g.data_ptr(), dx.data_ptr(), B, H, W, C, esize,
-        _build.num_sms(x), _build.stream_for(x))
-    _build.check(err, 'maxpool2x2_bwd')
+    dx = _bwd(x, g, first_max=False)
     maxpool2x2_bwd.launches += 1
     return dx
 
 
+def maxpool2x2_bwd_first(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Backward giving each window's g to its first maximum, with
+    `maxpool2x2_bwd`'s arguments.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in `maxpool2x2_bwd_first.launches`) or raise."""
+    if x.device.type == 'cpu' and g.device.type == 'cpu':
+        return maxpool2x2_bwd_first_reference(x, g)
+    dx = _bwd(x, g, first_max=True)
+    maxpool2x2_bwd_first.launches += 1
+    return dx
+
+
+_BACKWARDS = {'split': maxpool2x2_bwd, 'first': maxpool2x2_bwd_first}
+
+
 class _MaxPool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, ties):
         ctx.save_for_backward(x)
+        ctx.backward_fn = _BACKWARDS[ties]
         return maxpool2x2_fwd(x)
 
     @staticmethod
     def backward(ctx, g):
         x, = ctx.saved_tensors
-        return maxpool2x2_bwd(x, g.contiguous())
+        return ctx.backward_fn(x, g.contiguous()), None
 
 
-def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
+def maxpool2x2(x: torch.Tensor, ties: str = 'first') -> torch.Tensor:
     """Differentiable 2x2/2 max-pool of an NHWC tensor: `maxpool2x2_fwd`
-    forward, `maxpool2x2_bwd` backward."""
-    return _MaxPool.apply(x)
+    forward; backward `maxpool2x2_bwd_first` (ties='first', the model's:
+    `nn.max_pool`'s gradient) or `maxpool2x2_bwd` (ties='split', the
+    Pallas kernel's)."""
+    if ties not in _BACKWARDS:
+        raise ValueError(f"maxpool2x2: ties must be 'split' or 'first', got {ties!r}")
+    return _MaxPool.apply(x, ties)
 
 
 maxpool2x2_fwd.launches = 0
 maxpool2x2_bwd.launches = 0
+maxpool2x2_bwd_first.launches = 0

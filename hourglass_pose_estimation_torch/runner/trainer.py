@@ -67,11 +67,16 @@ class Trainer:
     `device` (the card unless device='cpu' is asked for)."""
 
     def __init__(self, cfg: Config, num_classes: Optional[int] = None,
-                 verbose: bool = True, device='cuda'):
+                 verbose: bool = True, device='cuda', eval_only: bool = False):
+        """eval_only=True skips the train split (its annotations need not
+        exist on a machine that only evaluates): the val dataset stands in
+        for the pipeline spec and the never-iterated train loader, and
+        `train()` refuses to run."""
         self.device = resolve_device(device)
         refuse_unported(cfg)
         self.cfg = cfg
         self.verbose = verbose
+        self.eval_only = eval_only
         mc, dc, tc = cfg.model, cfg.dataset, cfg.train
 
         self.num_classes = num_classes or resolve_num_classes(cfg)
@@ -93,7 +98,8 @@ class Trainer:
                          sigma=dc.sigma, scale_factor=dc.scale_factor,
                          rot_factor=dc.rot_factor, num_samples=dc.num_samples)
         self.val_ds = get_dataset(dc.name, False, **ds_kwargs)
-        self.train_ds = get_dataset(dc.name, True, **ds_kwargs)
+        self.train_ds = (self.val_ds if eval_only
+                         else get_dataset(dc.name, True, **ds_kwargs))
         self.spec = make_spec(self.train_ds)
         self.train_loader = Loader(self.train_ds, tc.train_batch, shuffle=True,
                                    seed=cfg.common.seed, drop_last=True)
@@ -271,6 +277,9 @@ class Trainer:
 
     def train(self) -> float:
         """Run epochs start_epoch .. TRAIN.epochs - 1 -> best val PCK."""
+        if self.eval_only:
+            raise RuntimeError('Trainer was built with eval_only=True '
+                               '(no train split loaded)')
         cfg = self.cfg
         os.makedirs(self.ckpt_dir, exist_ok=True)
         if self.writer is None:

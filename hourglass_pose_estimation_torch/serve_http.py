@@ -48,11 +48,8 @@ def build_inference(cfg, weights: str, device='cuda'):
     state = torch.load(weights, map_location=dev, weights_only=True)
     preprocess = (get_meanstd(cfg.dataset.name)
                   if cfg.eval.export_preprocess else None)
-    if cfg.eval.export_keypoints and cfg.eval.decode != 'quarter':
-        raise NotImplementedError(f'EVAL.decode={cfg.eval.decode!r}: only '
-                                  "'quarter' is ported")
     fn = make_inference_fn(
-        model, state, decode='quarter' if cfg.eval.export_keypoints else None,
+        model, state, decode=cfg.eval.decode if cfg.eval.export_keypoints else None,
         fold_bn=cfg.eval.export_fold_bn,
         weights_dtype=torch.bfloat16 if cfg.eval.export_bf16_weights else None,
         preprocess=preprocess, input_res=cfg.dataset.inp_res, device=dev)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Train from a YAML config on the card (the port's counterpart of
-`scripts/train_and_evaluate.py`).
+"""Train or evaluate from a YAML config on the card (the port's counterpart
+of `scripts/train_and_evaluate.py`).
 
     python -m hourglass_pose_estimation_torch.train_and_evaluate \\
         <config.yaml> [SECTION.key=value ...] [--device cuda|cpu]
@@ -8,8 +8,10 @@
 Trains with validation every epoch, snapshots under
 `COMMON.checkpoint_dir/<run name>/ckpts/` (the JAX CLI's derived run name,
 {dataset}_{arch}_s{stacks}_{mobile}_{subset}) and prints the best val PCK.
-`COMMON.resume` resumes from a checkpoint file. `COMMON.evaluate_only`
-(the standalone evaluator) is not ported yet.
+`COMMON.resume` resumes from a checkpoint file. `COMMON.evaluate_only=True`
+runs the standalone Evaluator on the checkpoint `COMMON.resume` names
+instead: the val loss and heatmap PCK and, with `EVAL.official=True`, the
+dataset-official table.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import os
 import sys
 
 from hourglass_pose_estimation_torch.config import load_config
+from hourglass_pose_estimation_torch.runner import checkpoint as ckpt_lib
+from hourglass_pose_estimation_torch.runner.evaluator import Evaluator
 from hourglass_pose_estimation_torch.runner.trainer import Trainer
 
 
@@ -32,12 +36,26 @@ def main(argv=None) -> int:
                     help="'cuda' (default) or 'cpu' (the plain path)")
     args = ap.parse_args(argv)
     cfg = load_config(args.config, overrides=args.overrides)
-    if cfg.common.evaluate_only:
-        raise NotImplementedError('COMMON.evaluate_only: the standalone evaluator '
-                                  'is not ported yet (ROADMAP Queue 1 item 11)')
     cfg = dataclasses.replace(cfg, common=dataclasses.replace(
         cfg.common, checkpoint_dir=os.path.join(cfg.common.checkpoint_dir,
                                                 cfg.run_name())))
+    if cfg.common.evaluate_only:
+        # fail fast on a missing checkpoint, before any dataset is built
+        if not (cfg.common.resume and os.path.exists(cfg.common.resume)):
+            raise FileNotFoundError(cfg.common.resume or '<COMMON.resume unset>')
+        evaluator = Evaluator(cfg, device=args.device)
+        # the model and state shell; eval_only skips the train split
+        trainer = Trainer(cfg, verbose=False, device=args.device, eval_only=True)
+        state = ckpt_lib.restore(cfg.common.resume, trainer.state)['state']
+        print(f'Loaded model {cfg.common.resume}', flush=True)
+        loss, acc = evaluator.evaluate(state)
+        print(f'loss {loss:.5f} | pck {acc:.4f}', flush=True)
+        if cfg.eval.official:
+            table = evaluator.evaluate_official(state)
+            for k, v in table.items():
+                print(f'  {k}: {v:.3f}' if isinstance(v, float) else f'  {k}: {v}',
+                      flush=True)
+        return 0
     trainer = Trainer(cfg, device=args.device)
     best = trainer.train()
     print(f'best val pck: {best:.4f}', flush=True)

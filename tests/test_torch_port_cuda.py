@@ -22,7 +22,8 @@ from hourglass_pose_estimation_torch.ops.hopper import (
     KERNEL_WRAPPERS, bottleneck_backward_reference, bottleneck_reference,
     decode_peaks, decode_peaks_reference, fused_bottleneck,
     fused_bottleneck_chunked, fused_bottleneck_image, maxpool2x2,
-    maxpool2x2_bwd, maxpool2x2_bwd_reference, maxpool2x2_fwd,
+    maxpool2x2_bwd, maxpool2x2_bwd_first, maxpool2x2_bwd_first_reference,
+    maxpool2x2_bwd_reference, maxpool2x2_fwd,
     maxpool2x2_reference, render_gaussian, render_gaussian_reference,
     upsample2x_add, upsample2x_add_bwd, upsample2x_add_bwd_reference,
     upsample2x_add_reference)
@@ -267,6 +268,28 @@ def test_pool_kernels_are_exact(dev, b, h, c, dtype):
     assert torch.equal(dx[0, 0:2, 0:2, :], (g[0, 0, 0].float() / 4).to(dtype).expand(2, 2, -1))
 
 
+@pytest.mark.parametrize('b,h,c,dtype', [(2, 12, 256, torch.bfloat16),
+                                         (2, 24, 128, torch.bfloat16),
+                                         (3, 8, 8, torch.float32)])
+def test_pool_first_max_kernel_matches_max_pool2d_autograd(dev, b, h, c, dtype):
+    """The first-maximum backward on the planted ties: equal to its plain
+    version and to F.max_pool2d's gradient (the JAX model's nn.max_pool
+    convention), through the wrapper and through the autograd Function."""
+    x = _tied(b, h, c, dtype, dev)
+    g = torch.randn(b, h // 2, h // 2, c, device=dev).to(dtype)
+    before = maxpool2x2_bwd_first.launches
+    dx = maxpool2x2_bwd_first(x, g)
+    assert maxpool2x2_bwd_first.launches == before + 1
+    assert torch.equal(dx, maxpool2x2_bwd_first_reference(x, g))
+    xn = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    torch.nn.functional.max_pool2d(xn, 2, 2).backward(g.permute(0, 3, 1, 2))
+    assert torch.equal(dx, xn.grad.permute(0, 2, 3, 1))
+    assert torch.equal(dx[0, 0, 0], g[0, 0, 0]) and not dx[0, 0:2, 0:2].flatten(0, 1)[1:].any()
+    xa = x.detach().requires_grad_()
+    maxpool2x2(xa).backward(g)
+    assert torch.equal(xa.grad, dx)
+
+
 @pytest.mark.parametrize('b,hm,img,j,sigma', [
     (4, (16, 16), (64, 64), 16, 1), (4, (16, 16), (64, 64), 16, 2),
     (3, (12, 20), (48, 80), 17, 1), (2, (13, 20), (52, 80), 17, 2),
@@ -305,8 +328,11 @@ def test_gradients_flow_through_the_autograd_functions(dev):
 
     x = _tied(2, 16, 256, torch.bfloat16, dev).requires_grad_()
     gp = torch.randn(2, 8, 8, 256, device=dev).to(torch.bfloat16)
-    maxpool2x2(x).backward(gp)
+    maxpool2x2(x, ties='split').backward(gp)
     assert torch.equal(x.grad, maxpool2x2_bwd_reference(x.detach(), gp))
+    x.grad = None
+    maxpool2x2(x).backward(gp)
+    assert torch.equal(x.grad, maxpool2x2_bwd_first_reference(x.detach(), gp))
 
     blk = Bottleneck(256, 128, fuse_block=True).to(dev)
     xb = torch.randn(2, 16, 16, 256, device=dev).to(torch.bfloat16).requires_grad_()
@@ -334,11 +360,12 @@ def test_small_train_step_launches_the_training_kernels(dev):
         w.launches = 0
     losses = [float(step(state, raw, 0)[1]['loss']) for _ in range(3)]
     counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
-    # per step: 4 merges, 1 stem + 4 encoder pools, 1 render
+    # per step: 4 merges, 1 stem + 4 encoder pools (their backward gives a
+    # tie's gradient to the first maximum), 1 render
     assert counts == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
                           upsample2x_add=12, decode_peaks=0,
                           upsample2x_add_bwd=12, maxpool2x2_fwd=15,
-                          maxpool2x2_bwd=15, render_gaussian=3)
+                          maxpool2x2_bwd=0, maxpool2x2_bwd_first=15, render_gaussian=3)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
@@ -368,3 +395,58 @@ def test_trainer_stages_batches_on_a_side_stream(dev, tmp_path):
     assert np.isfinite([h['train_loss'], h['val_loss']]).all()
     assert fused_bottleneck_chunked.launches + fused_bottleneck_image.launches > 0
     assert (tmp_path / 'ckpts' / 'checkpoint_1').is_file()
+
+
+def test_predict_keypoints_on_the_card_matches_the_plain_path(dev):
+    """The Evaluator's flip-test keypoints on the card, an f32 1-stack model
+    (standard blocks; the upsample and pool kernels and the decode kernel
+    on), against the same model with the kernels off on the card: those
+    kernels are exact, so the keypoints are equal. Launches per val batch
+    of 3: two forwards' 8 upsample and 10 pool, and 1 decode."""
+    from hourglass_pose_estimation_torch.config import load_config
+    from hourglass_pose_estimation_torch.runner import Evaluator, TrainState
+    cfg = load_config(raw={
+        'DATASET': {'name': 'synthetic', 'inp_res': 64, 'out_res': 16, 'num_samples': 7},
+        'MODEL': {'num_stacks': 1}, 'TRAIN': {'val_batch': 3, 'precision': 'f32'},
+        'EVAL': {'flip_test': True}})
+    ev = Evaluator(cfg, verbose=False, device=dev)
+    torch.manual_seed(0)
+    states = {}
+    for on in (True, False):
+        model = get_model('hg', device=dev, num_stacks=1, num_classes=16, dtype=torch.float32,
+                          fuse_block=on, fuse_upsample=on)
+        if states:
+            model.load_state_dict(states[True].model.state_dict())
+        states[on] = TrainState(model=model, tx=None, optimizer=None)
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    got = ev.predict_keypoints(states[True])
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    assert counts == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
+                          upsample2x_add=8 * 3, decode_peaks=3, upsample2x_add_bwd=0,
+                          maxpool2x2_fwd=10 * 3, maxpool2x2_bwd=0, maxpool2x2_bwd_first=0,
+                          render_gaussian=0)
+    ref = ev.predict_keypoints(states[False])
+    assert got.shape == (7, 16, 2) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_dark_decode_on_the_card_equals_the_cpu(dev):
+    """DARK on the card with TF32 on against the CPU on the same flat
+    heatmaps (those of random weights, where peaks' Hessians are nearly
+    singular): the blur's sums in the same order and the log taken in f64
+    give the same bits, where an f32 log's last bit would move the Newton
+    step."""
+    from hourglass_pose_estimation_torch.ops.decode import decode_dark
+    gen = torch.Generator().manual_seed(5)
+    hm = 0.05 * torch.rand(32, 64, 64, 16, generator=gen)
+    center = torch.rand(32, 2, generator=gen) * 200 + 28
+    scale = torch.rand(32, generator=gen) + 0.8
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = decode_dark(hm.to(dev), center.to(dev), scale.to(dev), zero_based=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    ref = decode_dark(hm, center, scale, zero_based=True)
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])

@@ -128,8 +128,8 @@ def test_training_kernel_wrappers_refuse_what_the_kernels_cannot_take():
     """The upsample-backward, pool and render wrappers raise before a launch
     on a non-CPU tensor the kernel cannot take (meta tensors here)."""
     from hourglass_pose_estimation_torch.ops.hopper import (
-        maxpool2x2, maxpool2x2_bwd, maxpool2x2_fwd, render_gaussian,
-        upsample2x_add_bwd)
+        maxpool2x2, maxpool2x2_bwd, maxpool2x2_bwd_first, maxpool2x2_fwd,
+        render_gaussian, upsample2x_add_bwd)
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, device='meta', dtype=dt)
     cases = [
         (upsample2x_add_bwd, (meta(2, 8, 8, 12),), 'multiple of 16'),
@@ -142,6 +142,11 @@ def test_training_kernel_wrappers_refuse_what_the_kernels_cannot_take():
         (maxpool2x2, (meta(2, 8, 64, 8).transpose(2, 3),), 'contiguous'),
         (maxpool2x2_bwd, (meta(2, 8, 8, 64), meta(2, 4, 4, 32)), 'g '),
         (maxpool2x2_bwd, (meta(2, 8, 8, 64), meta(2, 4, 4, 64, dt=torch.float32)), 'maxpool2x2_bwd'),
+        (maxpool2x2_bwd_first, (meta(2, 8, 8, 64), meta(2, 4, 4, 32)), 'g '),
+        (maxpool2x2_bwd_first, (meta(2, 6, 8, 4), meta(2, 3, 4, 4)), 'multiple of 16'),
+        (maxpool2x2_bwd_first, (meta(2, 8, 8, 64), meta(2, 4, 4, 64, dt=torch.float32)),
+         'maxpool2x2_bwd_first'),
+        (maxpool2x2, (meta(2, 8, 8, 64), 'all'), 'ties'),
         (render_gaussian, (meta(2, 16, 2, dt=torch.int64), meta(2, 16, dt=torch.float32),
                            (16, 16), 1), 'int32'),
         (render_gaussian, (meta(2, 16, 2, dt=torch.int32), meta(2, 16, dt=torch.bfloat16),

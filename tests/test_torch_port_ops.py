@@ -224,14 +224,6 @@ def test_decode_schedule_covers_every_row_once(H, B):
     assert decode_schedule(B, 12, 64, 16)[:2] == (3, 4)
 
 
-def test_decode_unported_modes_raise():
-    hm = torch.zeros(1, 4, 4, 2)
-    with pytest.raises(NotImplementedError, match='eval slice'):
-        tdecode.decode_quarter_offset(hm, np.zeros((1, 2)), np.ones(1))
-    with pytest.raises(NotImplementedError, match='eval slice'):
-        tdecode.decode_dark(hm, None, None)
-
-
 @pytest.mark.parametrize('shape,out', [((2, 80, 96, 3), (64, 64)),
                                        ((1, 30, 20, 3), (64, 48)),
                                        ((1, 64, 64, 3), (64, 64))])

@@ -1,8 +1,10 @@
 """Port training ops vs the JAX package, f32 on the CPU with seeded numpy
 inputs: train-mode BatchNorm, the loss and PCK, and the plain versions
 (and autograd Functions) of the training kernels: the Gaussian render,
-the 2x2 max-pool forward and backward, the upsample backward and the
-fused bottleneck's backward. Pallas kernels run in interpret mode."""
+the 2x2 max-pool forward and backward (both tie modes: the Pallas
+kernel's split, and the model's first maximum against `jax.grad` of
+`nn.max_pool`), the upsample backward and the fused bottleneck's backward.
+Pallas kernels run in interpret mode."""
 
 import numpy as np
 import pytest
@@ -10,6 +12,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from flax import linen as nn
 
 from hourglass_pose_estimation_tpu.loss import heatmap_mse_loss as jax_loss
 from hourglass_pose_estimation_tpu.models.norm import BatchNorm as JaxBN
@@ -25,7 +28,8 @@ from hourglass_pose_estimation_torch.models.norm import BatchNorm
 from hourglass_pose_estimation_torch.ops.heatmap import render_gaussian_targets
 from hourglass_pose_estimation_torch.ops.hopper import (
     BottleneckParams, bottleneck_backward_reference, fused_bottleneck,
-    maxpool2x2, upsample2x_add)
+    maxpool2x2, maxpool2x2_bwd_first_reference, upsample2x_add)
+from hourglass_pose_estimation_torch.models.modules import max_pool
 from hourglass_pose_estimation_torch.utils import evaluation as teval
 
 torch.set_num_threads(1)
@@ -183,7 +187,7 @@ def test_maxpool_plain_matches_pallas(rng, H, W, C):
     _, vjp = jax.vjp(lambda a: maxpool2x2_pallas(a, True), jnp.asarray(x))
     ref_dx, = vjp(jnp.asarray(g))
     xt = _t(x).requires_grad_(True)
-    out = maxpool2x2(xt)
+    out = maxpool2x2(xt, ties='split')
     out.backward(_t(g))
     np.testing.assert_array_equal(out.detach().numpy(), np.asarray(ref))
     np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(ref_dx))
@@ -200,9 +204,41 @@ def test_maxpool_bf16_backward_matches_pallas(rng):
     _, vjp = jax.vjp(lambda a: maxpool2x2_pallas(a, True), xb)
     ref, = vjp(gb)
     xt = _t(x).to(torch.bfloat16).requires_grad_(True)
-    maxpool2x2(xt).backward(_t(g).to(torch.bfloat16))
+    maxpool2x2(xt, ties='split').backward(_t(g).to(torch.bfloat16))
     np.testing.assert_array_equal(xt.grad.float().numpy(),
                                   np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize('dtype', [np.float32, jnp.bfloat16])
+def test_model_pool_gradient_matches_jax_max_pool(dtype):
+    """The model's pool with the kernel switch on (`max_pool(x, kernel=True)`)
+    gives a tie's whole gradient to the first maximum, as `jax.grad` of the
+    JAX model's `nn.max_pool` does: equal, on maps with planted 2-, 3- and
+    4-way ties (4-way also across a whole row of channels). Its own seeded
+    stream: the file's `rng` feeds the tests after it."""
+    rng = np.random.RandomState(6)
+    x = _pool_input(rng, 8, 12, 16)
+    x[0, 4:6, 4:6, :] = 1.0
+    x[1, 6:8, 0:2, 5] = [[0.5, -2.0], [0.5, 0.5]]
+    g = rng.normal(size=(2, 4, 6, 16)).astype(np.float32)
+    xj, gj = jnp.asarray(x, dtype), jnp.asarray(g, dtype)
+    _, vjp = jax.vjp(lambda a: nn.max_pool(a, (2, 2), strides=(2, 2)), xj)
+    ref, = vjp(gj)
+    tdt = torch.float32 if dtype == np.float32 else torch.bfloat16
+    xt = _t(np.asarray(xj, np.float32)).to(tdt).permute(0, 3, 1, 2).requires_grad_(True)
+    out = max_pool(xt.contiguous(memory_format=torch.channels_last), kernel=True)
+    out.backward(_t(np.asarray(gj, np.float32)).to(tdt).permute(0, 3, 1, 2))
+    np.testing.assert_array_equal(xt.grad.permute(0, 2, 3, 1).float().numpy(),
+                                  np.asarray(ref, np.float32))
+    # the 4-way tie: all of g at the window's top-left element
+    assert float(xt.grad[0, 0, 0, 0]) == float(np.asarray(gj, np.float32)[0, 0, 0, 0])
+    assert not xt.grad[0, 0, 0:2, 0:2].flatten()[1:].any()
+    # the plain version of the first-maximum kernel is F.max_pool2d's backward
+    xp = _t(x).permute(0, 3, 1, 2).requires_grad_(True)
+    torch.nn.functional.max_pool2d(xp, 2, 2).backward(_t(g).permute(0, 3, 1, 2))
+    np.testing.assert_array_equal(
+        maxpool2x2_bwd_first_reference(_t(x), _t(g)).numpy(),
+        xp.grad.permute(0, 2, 3, 1).numpy())
 
 
 # --- upsample backward vs the VJP of the Pallas kernel
