@@ -5,7 +5,9 @@
 
 Phases (any failed check exits non-zero; no phase catches its own
 failure):
-  1. the card's name and power limit (nvidia-smi);
+  1. the card's name and power limit (nvidia-smi), and a probe of what the
+     host data layer could decode images with here (cv2, libjpeg,
+     jpeglib.h; it informs and fails nothing);
   2. build the Hopper kernels from `hourglass_pose_estimation_torch/
      csrc/*.cu`, one nvcc per source, all started together, into the
      package's ignored build directory;
@@ -80,12 +82,31 @@ failure):
      `run_batch` of 64 uint8 480x640 frames (65/32/33 launches and 1
      decode) against the kernels off, `run` batch-1 latency (p50 of 20),
      `run_skeleton`;
- 12. the `kernels` JSON line (launches summed over the main paths of
-     phases 4 and 6-11; the pool backward that splits ties is on none of
-     them), then the result line.
+ 12. MSPN at full width (configs/train_mpii_8stack.yaml with
+     MODEL.arch=mspn MODEL.num_stacks=2: 56,848,576 parameters, 256^2 ->
+     64^2, bf16 compute): the train step at batch 64 (3 warm-up and 10
+     timed steps, the loss of every step finite and the last below the
+     first, step p50, img/s, peak memory, 1 render launch a step and no
+     other), the eval step (1 render);
+ 13. MSPN serving: serve_http.build_inference (fold_bn, bf16 weights, batch
+     64, MODEL.fuse_block at the arch's default, off) behind the batcher
+     and the HTTP server answering 128 frames, 1 decode a batch; folded vs
+     unfolded heatmaps and the card's bf16 vs the CPU's f32 for two
+     frames; batch-64 and batch-1 latency;
+ 14. the trainer CLI with MODEL.arch=mspn: 2 epochs of 3 steps at batch
+     32, a snapshot each epoch, 1 render a step and a val batch; the
+     evaluator CLI (COMMON.evaluate_only, flip test, EVAL.official) on its
+     checkpoint_2: 1 render a batch in `evaluate`, 1 decode in the
+     flip-test `predict_keypoints`, (loss, PCK) equal to the trainer's;
+     the Estimator on it (1 decode a `run_batch`); the interop CLI's export
+     to a reference-named .pth.tar and import back, whose served heatmaps
+     equal the checkpoint's bit for bit;
+ 15. the `kernels` JSON line (launches summed over the main paths of
+     phases 4, 6-11 and 12-14; the pool backward that splits ties is on
+     none of them), then the result line.
 --profile adds torch.profiler breakdowns (by kernel, by launching
-PyTorch op, by kind) of one serving batch and of one train step, and the
-serving front end's rate alone.
+PyTorch op, by kind) of one serving batch and of one train step, each for
+the hourglass and for MSPN, and the serving front end's rate alone.
 It exits with a non-zero code, printing no result, without a CUDA device
 or without the port package beside it.
 """
@@ -208,6 +229,22 @@ TOL_NEAR_TIE = 0.28
 TOL_DARK_PX = 1e-3
 # the estimator phase: a batch of camera-sized frames, and batch-1 calls
 ESTIMATOR_FRAMES, ESTIMATOR_FRAME, ESTIMATOR_RUNS = 64, (480, 640), 20
+# the MSPN phases: the full-width MSPN (2 stages, 16 joints, decoder
+# width 256) of the flagship config with MODEL.arch=mspn
+MSPN_STACKS, MSPN_PARAMS = 2, 56_848_576
+MSPN_OVERRIDES = ['MODEL.arch=mspn', f'MODEL.num_stacks={MSPN_STACKS}']
+# batch 64, the flagship's: at 32 the step peaked at 15.28 GiB on an H100
+MSPN_TRAIN_BATCH = 64
+MSPN_REQUESTS = 128
+MSPN_STEPS = 3
+MSPN_TRAINER = ['DATASET.name=synthetic', 'DATASET.num_samples=128', 'TRAIN.epochs=2',
+                f'TRAIN.steps_per_epoch={MSPN_STEPS}', 'COMMON.snapshot=1',
+                'TRAIN.learning_rate=2.5e-5']
+# MSPN serving heatmaps, relative L2: folded BN against unfolded (both bf16
+# weights on the card), and the card's bf16 against the f32 forward on the
+# CPU for two frames
+TOL_MSPN_FOLD = 3e-2
+TOL_MSPN_F32_REFERENCE = 5e-2
 TRAINER_OVERRIDES = ['DATASET.name=synthetic', 'DATASET.num_samples=128',
                      'TRAIN.epochs=3', 'TRAIN.steps_per_epoch=4',
                      f'TRAIN.freeze_bn_after_epoch={FREEZE_BN_AFTER}', 'COMMON.snapshot=1',
@@ -764,18 +801,18 @@ def run_client(base: str, seed: int, n: int, threads: int):
     return t0, time.time(), replies
 
 
-def serve_load(fn, seed: int):
+def serve_load(fn, seed: int, n_requests: int = N_REQUESTS):
     """Serve `fn` behind MicroBatcher(BATCH) + the HTTP server and POST
-    N_REQUESTS frames from the client processes -> (replies, seconds,
+    n_requests frames from the client processes -> (replies, seconds,
     batcher stats, batcher)."""
     import numpy as np
     from hourglass_pose_estimation_torch.serving import MicroBatcher, make_server
     batcher = MicroBatcher(fn, BATCH, (RES, RES, 3), dtype=np.uint8,
-                           max_wait_ms=50.0, max_queue=4 * N_REQUESTS)
+                           max_wait_ms=50.0, max_queue=4 * n_requests)
     srv = make_server(batcher, '127.0.0.1', 0)
     threading.Thread(target=srv.serve_forever, daemon=True).start()
     base = f'http://127.0.0.1:{srv.server_address[1]}'
-    per_proc = N_REQUESTS // CLIENT_PROCS
+    per_proc = n_requests // CLIENT_PROCS
     try:
         with multiprocessing.get_context('spawn').Pool(CLIENT_PROCS) as pool:
             parts = pool.starmap(run_client, [
@@ -1444,6 +1481,401 @@ def estimator_phase(ckpt: str, seed: int, paths: dict) -> dict:
     return out
 
 
+def host_data_probe() -> dict:
+    """What the host data layer could read images with on this machine: cv2
+    (its version, imported in a child process, so that this one never
+    loads it), libjpeg (the native loader links -ljpeg: the linker's name
+    for it, and the libjpeg files in the usual library directories),
+    jpeglib.h, and Pillow. Informs only."""
+    import ctypes.util
+    import importlib.util
+    r = subprocess.run([sys.executable, '-c', 'import cv2; print(cv2.__version__)'],
+                       capture_output=True, text=True, timeout=120)
+    cv2 = r.stdout.strip() if r.returncode == 0 else (r.stderr.strip().splitlines() or [''])[-1]
+    libdirs = ['/usr/lib', '/usr/lib64', '/usr/local/lib', '/usr/lib/x86_64-linux-gnu',
+               '/usr/lib/aarch64-linux-gnu']
+    incdirs = ['/usr/include', '/usr/local/include', '/usr/include/x86_64-linux-gnu',
+               '/usr/include/aarch64-linux-gnu']
+    return dict(cv2=cv2, cv2_imports=r.returncode == 0,
+                libjpeg=ctypes.util.find_library('jpeg'),
+                libjpeg_files=sorted(str(p) for d in libdirs for p in Path(d).glob('libjpeg*')),
+                jpeglib_h=[d for d in incdirs if Path(d, 'jpeglib.h').is_file()],
+                pillow=importlib.util.find_spec('PIL') is not None)
+
+
+def mspn_model(seed: int, device='cuda'):
+    """The full-width MSPN of MSPN_OVERRIDES (2 stages, 16 joints, decoder
+    width 256, 256^2 -> 64^2), bf16 compute, f32 parameters and BN, seeded
+    weights."""
+    import torch
+    from hourglass_pose_estimation_torch.models import get_model
+    torch.manual_seed(seed)
+    return get_model('mspn', device=device, num_stacks=MSPN_STACKS, num_classes=16,
+                     out_res=RES // 4)
+
+
+def mspn_train_phase(seed: int, raw, spec, batch: int, paths: dict):
+    """The MSPN train step at full width: 3 warm-up and 10 timed steps on a
+    fixed batch through the device pipeline (the render kernel), the loss of
+    every step, 1 render and no other launch a step. -> (state, numbers)."""
+    import torch
+    from hourglass_pose_estimation_torch.runner import init_state, make_optimizer, make_train_step
+    model = mspn_model(seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f'mspn: {MSPN_STACKS} stages, {n_params:,} parameters', flush=True)
+    check(n_params == MSPN_PARAMS, f'mspn: {n_params:,} parameters, not {MSPN_PARAMS:,}')
+    state = init_state(model, make_optimizer(*OPT))
+    step = make_train_step(spec, device_pipeline=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    state, m = step(state, raw, seed)
+    losses = [float(m['loss'])]
+    expect_counts(read_counts(), 'mspn train step', render_gaussian=1)
+    for _ in range(TRAIN_WARMUP - 1):
+        state, m = step(state, raw, seed)
+        losses.append(float(m['loss']))
+    zero_counts()
+    times = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        state, m = step(state, raw, seed)
+        losses.append(float(m['loss']))              # waits for the step
+        times.append(time.perf_counter() - t0)
+    paths['mspn_train'] = launches = read_counts()
+    expect_counts(launches, f'mspn: {TRAIN_TIMED} train steps', render_gaussian=TRAIN_TIMED)
+    check(all(l == l and abs(l) < float('inf') for l in losses), f'mspn train: losses {losses}')
+    check(losses[-1] < losses[0], f'mspn train: step {len(losses)} loss not below step 1: {losses}')
+    step_ms = sorted(times)[len(times) // 2] * 1e3
+    out = dict(batch=batch, params=n_params, step_ms_p50=step_ms,
+               images_per_s=batch / step_ms * 1e3, step_ms_min=min(times) * 1e3,
+               step_ms_max=max(times) * 1e3,
+               max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               losses=losses, acc_last=float(m['acc']), launches_per_step={
+                   k: v // TRAIN_TIMED for k, v in launches.items()})
+    print('mspn train: ' + json.dumps(out), flush=True)
+    return state, out
+
+
+def mspn_eval_phase(state, raw, spec, batch: int, paths: dict) -> dict:
+    """The eval step on the trained MSPN: 1 render, a finite loss."""
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch.runner import make_eval_step
+    eval_step = make_eval_step(spec, device_pipeline=True)
+    valid = np.ones(batch, np.float32)
+    eval_step(state, raw, valid)                                   # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    m = eval_step(state, raw, valid)
+    loss, acc = float(m['loss']), float(m['acc'])
+    ms = (time.perf_counter() - t0) * 1e3
+    paths['mspn_eval'] = launches = read_counts()
+    expect_counts(launches, 'mspn eval step', render_gaussian=1)
+    check(np.isfinite(loss) and np.isfinite(acc), f'mspn eval: loss {loss}, acc {acc}')
+    out = dict(loss=loss, acc=acc, step_ms=ms)
+    print('mspn eval: ' + json.dumps(out), flush=True)
+    return out
+
+
+def mspn_config(*extra):
+    from hourglass_pose_estimation_torch.config import load_config
+    return load_config(str(REPO / 'configs' / 'train_mpii_8stack.yaml'),
+                       overrides=MSPN_OVERRIDES + list(extra))
+
+
+def mspn_serving_phase(seed: int, paths: dict, profile: bool) -> dict:
+    """serve_http.build_inference of MODEL.arch=mspn (fold_bn, bf16 weights,
+    batch 64, MODEL.fuse_block at the arch's default, off) behind the
+    batcher and the HTTP server: MSPN_REQUESTS frames, 1 decode launch a
+    batch; the folded heatmaps against the unfolded ones on the card, and
+    the card's bf16 against the f32 forward on the CPU for two frames;
+    batch-64 and batch-1 latency."""
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch.data import get_meanstd
+    from hourglass_pose_estimation_torch.export import make_inference_fn
+    from hourglass_pose_estimation_torch.models import MSPN
+    from hourglass_pose_estimation_torch.serve_http import build_inference
+    cfg = mspn_config('EVAL.export_keypoints=true', 'EVAL.export_preprocess=true',
+                      f'EVAL.export_batch={BATCH}', 'EVAL.export_bf16_weights=true')
+    check(cfg.model.fuse_block is False, f'mspn config: MODEL.fuse_block {cfg.model.fuse_block}')
+    model = mspn_model(seed, device='cpu')
+    randomize_bn_(model, torch.Generator().manual_seed(seed + 1))
+    weights = io.BytesIO()
+    torch.save(model.state_dict(), weights)
+    weights.seek(0)
+    fn, batch, frame_shape, frame_dtype = build_inference(cfg, weights)
+    check(batch == BATCH and frame_shape == (RES, RES, 3) and frame_dtype == np.uint8,
+          f'mspn serve_http built batch {batch}, frames {frame_shape} {frame_dtype}')
+    frames = client_frames(seed, BATCH)
+    fn(frames)                                                     # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    replies, serve_s, stats, batcher = serve_load(fn, seed, MSPN_REQUESTS)
+    paths['mspn_serve'] = launches = read_counts()
+    nb = batcher.n_batches
+    for i, r in enumerate(replies):
+        kps = np.asarray(r['keypoints'], np.float64)
+        check(kps.shape == (16, 2) and len(r['scores']) == 16
+              and bool(np.isfinite(kps).all() and np.isfinite(r['scores']).all())
+              and bool((kps >= 0).all() and (kps <= RES).all()), f'mspn reply {i}: {kps.shape}')
+    check(batcher.n_frames == MSPN_REQUESTS, f'mspn served {batcher.n_frames} frames')
+    expect_counts(launches, f'mspn serving, {nb} batches', decode_peaks=nb)
+
+    meanstd = get_meanstd(cfg.dataset.name)
+    build = lambda m, fold, device='cuda', wd=torch.bfloat16: make_inference_fn(
+        m, None, fold_bn=fold, weights_dtype=wd, preprocess=meanstd, input_res=RES,
+        device=device)
+    hm_fold = build(model, True)(frames)
+    hm_unfold = build(model, False)(frames)
+    torch.cuda.synchronize()
+    check(tuple(hm_fold.shape) == (BATCH, RES // 4, RES // 4, 16)
+          and bool(torch.isfinite(hm_fold).all()), f'mspn heatmaps {tuple(hm_fold.shape)}')
+    err_fold = rel_l2(hm_fold, hm_unfold)
+    ref = MSPN(num_stacks=MSPN_STACKS, num_classes=16, out_res=RES // 4, dtype=torch.float32)
+    ref.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        hm_ref = build(ref, True, device='cpu', wd=None)(frames[:2])
+    err_ref = rel_l2(hm_fold[:2].cpu(), hm_ref)
+    del hm_unfold, ref
+
+    def one(x):
+        out = fn(x)
+        torch.cuda.synchronize()
+        return out
+
+    lat = {}
+    for b in (BATCH, 1):
+        for _ in range(3):
+            one(frames[:b])
+        ts = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            one(frames[:b])
+            ts.append(time.perf_counter() - t0)
+        lat[b] = sorted(ts)[len(ts) // 2] * 1e3
+    out = dict(batch=BATCH, requests=MSPN_REQUESTS, served_batches=nb,
+               served_images_per_s=MSPN_REQUESTS / serve_s,
+               served_batch_ms_p50=stats['batch_latency_ms_p50'],
+               fn_batch_ms_p50=lat[BATCH], fn_images_per_s=BATCH / lat[BATCH] * 1e3,
+               fn_batch1_ms_p50=lat[1], folded_vs_unfolded_rel_l2=err_fold,
+               card_bf16_vs_cpu_f32_rel_l2=err_ref, launches=launches)
+    print(f'mspn serving: {json.dumps(out)} (tol folded {TOL_MSPN_FOLD}, '
+          f'f32 reference {TOL_MSPN_F32_REFERENCE})', flush=True)
+    check(err_fold <= TOL_MSPN_FOLD, f'mspn folded vs unfolded rel L2 {err_fold:.3e}')
+    check(err_ref <= TOL_MSPN_F32_REFERENCE, f'mspn card bf16 vs CPU f32 rel L2 {err_ref:.3e}')
+    if profile:
+        profile_block(lambda: one(frames), 'mspn serving batch of 64', lat[BATCH])
+    return out
+
+
+def mspn_trainer_phase(paths: dict, tmp: str) -> dict:
+    """The trainer CLI with MODEL.arch=mspn at full width (MSPN_TRAINER:
+    synthetic data, 2 epochs of MSPN_STEPS steps at batch 32, a snapshot
+    each epoch), each epoch's launches counted: 1 render a train step and a
+    val batch, nothing else."""
+    import numpy as np
+    from hourglass_pose_estimation_torch import train_and_evaluate as tae
+    from hourglass_pose_estimation_torch.runner.trainer import Trainer
+
+    runs = []
+
+    class CountingTrainer(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.counts = []
+            runs.append(self)
+
+        def _train_epoch(self, epoch, rng):
+            zero_counts()
+            out = super()._train_epoch(epoch, rng)
+            self.counts.append(dict(train=read_counts()))
+            return out
+
+        def _evaluate(self):
+            zero_counts()
+            out = super()._evaluate()
+            self.counts[-1]['val'] = read_counts()
+            return out
+
+    saved = tae.Trainer
+    tae.Trainer = CountingTrainer
+    try:
+        t0 = time.time()
+        check(tae.main([str(REPO / 'configs' / 'train_mpii_8stack.yaml')] + MSPN_OVERRIDES
+                       + MSPN_TRAINER + [f'COMMON.checkpoint_dir={tmp}']) == 0,
+              'mspn trainer: main() failed')
+        run_s = time.time() - t0
+    finally:
+        tae.Trainer = saved
+    check(len(runs) == 1, f'mspn trainer: {len(runs)} Trainers')
+    (tr,) = runs
+    check(type(tr.model).__name__ == 'MSPN' and tr.steps_per_epoch == MSPN_STEPS,
+          f'mspn trainer: {type(tr.model).__name__}, {tr.steps_per_epoch} steps')
+    nval = len(tr.val_loader)
+    total = {}
+    for h, c in zip(tr.history, tr.counts):
+        expect_counts(c['train'], f"mspn trainer epoch {h['epoch']} train",
+                      render_gaussian=MSPN_STEPS)
+        expect_counts(c['val'], f"mspn trainer epoch {h['epoch']} val", render_gaussian=nval)
+        for k in c['train']:
+            total[k] = total.get(k, 0) + c['train'][k] + c['val'][k]
+        check(all(np.isfinite(v) for v in h.values()), f'mspn trainer: not finite: {h}')
+        print('mspn trainer epoch: ' + json.dumps(dict(h, launches_train=c['train'],
+                                                       launches_val=c['val'])), flush=True)
+    paths['mspn_trainer'] = total
+    ckpts = next(Path(tmp).glob('*_mspn_*/ckpts'))
+    written = sorted(p.name for p in ckpts.iterdir())
+    check([h['epoch'] for h in tr.history] == [1, 2]
+          and {'checkpoint_1', 'checkpoint_2'} <= set(written)
+          and ('best' in written) == (tr.best_acc > 0), f'mspn trainer: checkpoints {written}')
+    last = tr.history[-1]
+    out = dict(run_s=run_s, epochs=tr.history, checkpoints=written,
+               checkpoint=str(ckpts / 'checkpoint_2'), val=(last['val_loss'], last['val_acc']),
+               val_batches=nval)
+    print('mspn trainer: ' + json.dumps({k: v for k, v in out.items() if k != 'epochs'}),
+          flush=True)
+    return out
+
+
+def mspn_evaluator_phase(tmp: str, trainer: dict, paths: dict) -> dict:
+    """`evaluate_only` with MODEL.arch=mspn on the trainer's checkpoint_2
+    (the config's flip test, EVAL.official): 1 render a batch in
+    `evaluate`, 1 decode a batch in the flip-test `predict_keypoints`;
+    (loss, PCK) equal to the trainer's epoch-2 validation; a finite OKS
+    table."""
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch import train_and_evaluate as tae
+    from hourglass_pose_estimation_torch.runner import Evaluator
+
+    calls = []
+
+    class CountingEvaluator(Evaluator):
+        def _count(self, what, fn, *args):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            calls.append(dict(what=what, s=time.perf_counter() - t0, counts=read_counts(),
+                              out=out))
+            return out
+
+        def evaluate(self, state):
+            return self._count('evaluate', super().evaluate, state)
+
+        def predict_keypoints(self, state, flip_test=None, return_scores=False):
+            return self._count('predict_keypoints', super().predict_keypoints, state,
+                               flip_test, return_scores)
+
+    saved = tae.Evaluator
+    tae.Evaluator = CountingEvaluator
+    try:
+        t0 = time.time()
+        check(tae.main([str(REPO / 'configs' / 'train_mpii_8stack.yaml')] + MSPN_OVERRIDES
+                       + MSPN_TRAINER + [f'COMMON.checkpoint_dir={tmp}',
+                                         'COMMON.evaluate_only=True', 'EVAL.official=True',
+                                         f'COMMON.resume={trainer["checkpoint"]}']) == 0,
+              'mspn evaluator: main() failed')
+        main_s = time.time() - t0
+    finally:
+        tae.Evaluator = saved
+    check([c['what'] for c in calls] == ['evaluate', 'predict_keypoints'],
+          f"mspn evaluator: calls {[c['what'] for c in calls]}")
+    ev, pk = calls
+    nb = trainer['val_batches']
+    expect_counts(ev['counts'], 'mspn evaluator: evaluate', render_gaussian=nb)
+    expect_counts(pk['counts'], 'mspn evaluator: predict_keypoints', decode_peaks=nb)
+    paths['mspn_evaluator_evaluate'], paths['mspn_evaluator_predict'] = ev['counts'], pk['counts']
+    (loss, acc), (want_loss, want_acc) = ev['out'], trainer['val']
+    preds, scores = pk['out']
+    check(np.isfinite(loss) and abs(loss - want_loss) <= TOL_EVALUATOR * abs(want_loss)
+          and abs(acc - want_acc) <= TOL_EVALUATOR * abs(want_acc),
+          f'mspn evaluator: ({loss}, {acc}) against the trainer\'s ({want_loss}, {want_acc})')
+    check(preds.shape[1:] == (16, 2) and np.isfinite(preds).all() and np.isfinite(scores).all(),
+          f'mspn evaluator: keypoints {preds.shape}')
+    out = dict(main_s=main_s, evaluate_s=ev['s'], predict_flip_s=pk['s'],
+               predict_flip_images_per_s=len(preds) / pk['s'], loss=loss, acc=acc)
+    print('mspn evaluator: ' + json.dumps(out), flush=True)
+    return out
+
+
+def mspn_estimator_phase(ckpt: str, seed: int, paths: dict) -> dict:
+    """The Estimator with MODEL.arch=mspn on the trainer's checkpoint_2,
+    device preprocess: `run_batch` of 64 uint8 480x640 frames (1 decode),
+    `run` batch-1 latency."""
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch.runner import Estimator
+    est = Estimator(mspn_config(f'COMMON.resume={ckpt}', 'COMMON.dataset=synthetic'))
+    check(type(est.model).__name__ == 'MSPN', f'mspn estimator: {type(est.model).__name__}')
+    h, w = ESTIMATOR_FRAME
+    frames = np.random.RandomState(seed + 12).randint(
+        0, 256, size=(ESTIMATOR_FRAMES, h, w, 3)).astype(np.uint8)
+    est.run_batch(frames, device_preprocess=True)                  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    kps = est.run_batch(frames, device_preprocess=True)
+    batch_s = time.perf_counter() - t0
+    paths['mspn_estimator'] = counts = read_counts()
+    expect_counts(counts, 'mspn estimator: run_batch', decode_peaks=1)
+    check(kps.shape == (ESTIMATOR_FRAMES, 16, 2) and bool((kps >= 0).all())
+          and bool((kps[..., 0] <= w).all() and (kps[..., 1] <= h).all()),
+          f'mspn estimator: keypoints {kps.shape} outside the frame')
+    ts = []
+    for i in range(ESTIMATOR_RUNS + 2):
+        t0 = time.perf_counter()
+        one = est.run(frames[i % ESTIMATOR_FRAMES], time_it=False, device_preprocess=True)
+        ts.append(time.perf_counter() - t0)
+    check(one.shape == (16, 2), f'mspn estimator: run {one.shape}')
+    out = dict(run_batch_s=batch_s, run_batch_images_per_s=ESTIMATOR_FRAMES / batch_s,
+               run_ms_p50=sorted(ts[2:])[len(ts[2:]) // 2] * 1e3)
+    print('mspn estimator: ' + json.dumps(out), flush=True)
+    return out
+
+
+def mspn_interop_phase(ckpt: str, tmp: str, seed: int) -> dict:
+    """The trainer's checkpoint_2 exported to a reference-named .pth.tar and
+    imported back through the interop CLI: the served heatmaps of the two
+    port checkpoints (serve_http's build) equal bit for bit."""
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch import interop
+    from hourglass_pose_estimation_torch.serve_http import build_inference
+    ref = str(Path(tmp) / 'mspn_reference.pth.tar')
+    back = str(Path(tmp) / 'mspn_imported')
+    cfg_path = str(REPO / 'configs' / 'train_mpii_8stack.yaml')
+    t0 = time.time()
+    check(interop.main(['export', ckpt, ref]) == 0, 'mspn interop: export failed')
+    check(interop.main(['import', cfg_path, ref, back] + MSPN_OVERRIDES) == 0,
+          'mspn interop: import failed')
+    round_s = time.time() - t0
+    keys = torch.load(ref, weights_only=True)['state_dict'].keys()
+    check(any(k.startswith('mspn_modules.1.upsample.up4.') for k in keys)
+          and not any(k.startswith('stage') for k in keys), 'mspn interop: reference names')
+    cfg = mspn_config('EVAL.export_preprocess=true', f'EVAL.export_batch={BATCH}',
+                      'EVAL.export_bf16_weights=true')
+    frames = client_frames(seed + 5, BATCH)
+    maps = []
+    for path in (ckpt, back):
+        weights = io.BytesIO()
+        torch.save(torch.load(path, map_location='cpu', weights_only=True)['model'], weights)
+        weights.seek(0)
+        maps.append(build_inference(cfg, weights)[0](frames))
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(maps[0], maps[1]))
+    out = dict(entries=len(keys), round_trip_s=round_s, heatmaps_equal=equal,
+               heatmaps_finite=bool(torch.isfinite(maps[0]).all()))
+    print('mspn interop: ' + json.dumps(out), flush=True)
+    check(equal and out['heatmaps_finite'], 'mspn interop: served heatmaps differ after the '
+          'round trip')
+    return out
+
+
 def profile_block(fn, what: str, unprofiled_ms: float, top: int = 14) -> None:
     """torch.profiler over one call of fn: wall time, device busy time and
     idle share (against the profiled wall, and against `unprofiled_ms`, the
@@ -1532,6 +1964,7 @@ def main(argv=None) -> int:
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f'torch {torch.__version__} cuda {torch.version.cuda} device {kind}', flush=True)
+    print('host data probe: ' + json.dumps(host_data_probe()), flush=True)
 
     # 2. build (one nvcc per source, all started together)
     t0 = time.time()
@@ -1674,8 +2107,33 @@ def main(argv=None) -> int:
         evaluation = evaluator_phase(tmp, trainer, paths)
         torch.cuda.empty_cache()
         estimation = estimator_phase(trainer['checkpoint'], args.seed, paths)
+    torch.cuda.empty_cache()
 
-    # 10. the kernels, with their launches on the main paths
+    # 12-14. MSPN at full width: the train step, the eval step, serving, the
+    # trainer CLI, the evaluator CLI, the estimator, the interop round trip
+    raw, spec = train_data(MSPN_TRAIN_BATCH)
+    state, mspn_train = mspn_train_phase(args.seed, raw, spec, MSPN_TRAIN_BATCH, paths)
+    mspn_eval_phase(state, raw, spec, MSPN_TRAIN_BATCH, paths)
+    if args.profile:
+        from hourglass_pose_estimation_torch.runner import make_train_step
+        step = make_train_step(spec, device_pipeline=True)
+        profile_block(lambda: step(state, raw, args.seed),
+                      f'mspn train step, batch {MSPN_TRAIN_BATCH}', mspn_train['step_ms_p50'],
+                      top=24)
+    del state, raw
+    torch.cuda.empty_cache()
+    mspn_serve = mspn_serving_phase(args.seed, paths, args.profile)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mspn_trainer = mspn_trainer_phase(paths, tmp)
+        torch.cuda.empty_cache()
+        mspn_evaluator_phase(tmp, mspn_trainer, paths)
+        torch.cuda.empty_cache()
+        mspn_estimation = mspn_estimator_phase(mspn_trainer['checkpoint'], args.seed, paths)
+        torch.cuda.empty_cache()
+        mspn_interop_phase(mspn_trainer['checkpoint'], tmp, args.seed)
+
+    # 15. the kernels, with their launches on the main paths
     for r in rows:
         r['launches'] = sum(p[r['name']] for p in paths.values())
         r['launches_by_path'] = {k: p[r['name']] for k, p in paths.items()}
@@ -1691,6 +2149,12 @@ def main(argv=None) -> int:
           f'test {evaluation["predict_flip_images_per_s"]:.1f} img/s; estimator run_batch '
           f'{estimation["run_batch_images_per_s"]:.1f} img/s, run p50 '
           f'{estimation["run_ms_p50"]:.2f} ms', flush=True)
+    print(f'card: {card}; mspn ({MSPN_PARAMS:,} parameters): train step p50 '
+          f'{mspn_train["step_ms_p50"]:.2f} ms, {mspn_train["images_per_s"]:.1f} img/s at batch '
+          f'{MSPN_TRAIN_BATCH}, peak {mspn_train["max_memory_allocated_gib"]:.2f} GiB; served '
+          f'{mspn_serve["served_images_per_s"]:.1f} img/s, batch-1 '
+          f'{mspn_serve["fn_batch1_ms_p50"]:.2f} ms; trainer {mspn_trainer["run_s"]:.1f} s for '
+          f'2 epochs; estimator run p50 {mspn_estimation["run_ms_p50"]:.2f} ms', flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.time() - t_start:.1f} s', flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

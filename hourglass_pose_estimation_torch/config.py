@@ -6,7 +6,8 @@ overrides), so one config file drives both packages: every key of the JAX
 package, with its default and validation. Keys that ask for what the port
 has not got yet (several devices, the host cv2 pipeline) parse here and
 are refused, with the ROADMAP item that brings them, by the entry point
-that would read them. One default differs: MODEL.fuse_block is on.
+that would read them. One default differs: MODEL.fuse_block is the arch's
+own, on for hg (off in the JAX package) and off for mspn.
 """
 
 from __future__ import annotations
@@ -58,6 +59,10 @@ class DatasetConfig:
             raise ValueError("canvas_mode must be 'crop' or 'image'")
 
 
+# MODEL.fuse_block where the config leaves it unset, per arch
+_FUSE_BLOCK_DEFAULT = {'hg': True, 'mspn': False}
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     arch: str = 'hg'
@@ -78,14 +83,20 @@ class ModelConfig:
     # bottleneck kernel (models/modules.py Bottleneck.fuse_block); an f32
     # model (TRAIN.precision f32) runs its standard blocks. Sum merges take
     # the fused upsample+add (Hourglass.fuse_upsample).
-    # On by default, unlike the JAX package: on the card both kernels beat
-    # their plain versions (PERF.md), and CPU tensors take the plain
-    # versions anyway. False runs the plain path, the kernels-off control.
-    fuse_block: bool = True
+    # Unset, it takes the arch's own default (_FUSE_BLOCK_DEFAULT): on for
+    # hg, unlike the JAX package (on the card both kernels beat their plain
+    # versions, PERF.md, and CPU tensors take the plain versions anyway);
+    # off for mspn, which has no such block and whose factory raises on a
+    # true value, as the JAX one does. False runs the plain path, the
+    # kernels-off control.
+    fuse_block: Optional[bool] = None
 
     def __post_init__(self):
         if self.skip_mode not in ('sum', 'concat'):
             raise ValueError("skip_mode must be 'sum' or 'concat'")
+        if self.fuse_block is None:
+            object.__setattr__(self, 'fuse_block',
+                               _FUSE_BLOCK_DEFAULT.get(self.arch, False))
 
 
 @dataclass(frozen=True)

@@ -24,7 +24,7 @@ from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.config import Config
 from hourglass_pose_estimation_torch.data import N_JOINTS
 from hourglass_pose_estimation_torch.data.meanstd import ESTIMATOR_MEANSTD, get_meanstd
-from hourglass_pose_estimation_torch.models import get_model
+from hourglass_pose_estimation_torch.models import model_from_config
 from hourglass_pose_estimation_torch.ops.decode import (
     decode_nms_peaks, decode_quarter_offset, decode_simple_argmax)
 from hourglass_pose_estimation_torch.ops.resize import resize_bilinear_halfpix
@@ -61,11 +61,8 @@ class Estimator:
         # dataset's joint count
         num_classes = (mc.num_classes or (len(mc.subset) if mc.subset else 0)
                        or self._joints_for(cc.dataset))
-        self.model = get_model(mc.arch, device=self.device, num_stacks=mc.num_stacks,
-                               num_blocks=mc.num_blocks, num_classes=num_classes,
-                               mobile=mc.mobile, skip_mode=mc.skip_mode,
-                               out_res=cc.out_res, up_channel_num=mc.up_channel_num,
-                               fuse_block=mc.fuse_block, fuse_upsample=mc.fuse_block)
+        self.model = model_from_config(mc, num_classes=num_classes, out_res=cc.out_res,
+                                       device=self.device)
         self.input_size = (cc.in_res, cc.in_res)
         self.threshold = 0.02
         self.mean, self.std = get_meanstd(cc.dataset)

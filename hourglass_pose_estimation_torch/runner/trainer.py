@@ -37,7 +37,7 @@ from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.config import Config
 from hourglass_pose_estimation_torch.data import (
     Loader, Prefetcher, get_dataset, make_spec, resolve_num_classes, to_device)
-from hourglass_pose_estimation_torch.models import get_model
+from hourglass_pose_estimation_torch.models import model_from_config
 from hourglass_pose_estimation_torch.runner import checkpoint as ckpt_lib
 from hourglass_pose_estimation_torch.runner.train_state import (
     init_state, make_eval_step, make_optimizer, make_train_step)
@@ -84,13 +84,10 @@ class Trainer:
         # weights from COMMON.seed, without touching the global generator
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.common.seed)
-            self.model = get_model(
-                mc.arch, device=self.device, num_stacks=mc.num_stacks,
-                num_blocks=mc.num_blocks, num_classes=self.num_classes,
-                mobile=mc.mobile, skip_mode=mc.skip_mode, out_res=dc.out_res,
-                up_channel_num=mc.up_channel_num, dtype=dtype, remat=tc.remat,
-                bn_stat_samples=tc.bn_stat_samples, fuse_block=mc.fuse_block,
-                fuse_upsample=mc.fuse_block)
+            self.model = model_from_config(
+                mc, num_classes=self.num_classes, out_res=dc.out_res,
+                device=self.device, dtype=dtype, remat=tc.remat,
+                bn_stat_samples=tc.bn_stat_samples)
 
         ds_kwargs = dict(image_path=dc.image_path,
                          annotation_path=dc.annotation_path,

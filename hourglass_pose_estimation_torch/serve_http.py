@@ -34,17 +34,11 @@ def build_inference(cfg, weights: str, device='cuda'):
     from hourglass_pose_estimation_torch.data import (
         get_meanstd, resolve_num_classes)
     from hourglass_pose_estimation_torch.export import make_inference_fn
-    from hourglass_pose_estimation_torch.models import get_model
+    from hourglass_pose_estimation_torch.models import model_from_config
 
     dev = resolve_device(device)
-    model = get_model(cfg.model.arch, device=dev,
-                      num_stacks=cfg.model.num_stacks,
-                      num_blocks=cfg.model.num_blocks,
-                      num_classes=resolve_num_classes(cfg),
-                      mobile=cfg.model.mobile, skip_mode=cfg.model.skip_mode,
-                      up_channel_num=cfg.model.up_channel_num,
-                      fuse_block=cfg.model.fuse_block,
-                      fuse_upsample=cfg.model.fuse_block)
+    model = model_from_config(cfg.model, num_classes=resolve_num_classes(cfg),
+                              out_res=cfg.dataset.out_res, device=dev)
     state = torch.load(weights, map_location=dev, weights_only=True)
     preprocess = (get_meanstd(cfg.dataset.name)
                   if cfg.eval.export_preprocess else None)

@@ -450,3 +450,89 @@ def test_dark_decode_on_the_card_equals_the_cpu(dev):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
     ref = decode_dark(hm, center, scale, zero_based=True)
     assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+
+
+@pytest.mark.parametrize('size', [(8, 8, 16, 16), (7, 5, 13, 9), (16, 16, 8, 8), (2, 2, 64, 64)])
+def test_align_corners_resize_on_the_card_matches_the_cpu(dev, size):
+    """The MSPN decoder's resize (two f32 products, TF32 off) on the card
+    against the CPU: f32 within 1e-6 of the largest value, its gradient too,
+    and bf16 within one bf16 step."""
+    from hourglass_pose_estimation_torch.ops.resize import resize_bilinear_align_corners
+    H, W, h, w = size
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, H, W, 256, generator=gen)
+    g = torch.randn(4, h, w, 256, generator=gen)
+    outs, grads = [], []
+    for d in ('cpu', dev):
+        xd = x.to(d).clone().requires_grad_()
+        y = resize_bilinear_align_corners(xd, (h, w))
+        (y * g.to(d)).sum().backward()
+        outs.append(y.detach().cpu())
+        grads.append(xd.grad.cpu())
+    assert (outs[1] - outs[0]).abs().max() <= 1e-6 * outs[0].abs().max()
+    assert (grads[1] - grads[0]).abs().max() <= 1e-6 * grads[0].abs().max()
+    yb = [resize_bilinear_align_corners(x.to(d, torch.bfloat16), (h, w)).cpu().float()
+          for d in ('cpu', dev)]
+    assert bool(((yb[1] - yb[0]).abs() <= 2 ** -7 * yb[0].abs()).all())
+
+
+def test_mspn_on_the_card_matches_the_cpu(dev):
+    """A 2-stage MSPN (decoder width 64) at 64^2 in f32 on the card against
+    the CPU, TF32 off: the train and eval forwards' heads within 1e-4
+    relative L2 each, the train-mode running statistics too; in bf16 the
+    card's heads against the CPU's bf16 and f32 forwards. No port kernel
+    runs in the model (its stem pool is 3x3/2, its upsample bilinear), and
+    the stem pool's backward gives each tie to the first maximum on the
+    card too. The weights: each residual branch's last BN scale (`cbr3`)
+    at 0.05 and running statistics of one batch (momentum 0). With scale 1
+    a train-mode MSPN at init is chaotic: f32 rounding grows ~1.2x a block
+    (on the CPU, f32 against f64: 1.3e-2 at stage 2's heads), too much to
+    compare; at 0.05 f32 against f64 reads 6e-6 and the CPU's bf16
+    against its f32 8.7e-2."""
+    import torch.nn.functional as F
+    from hourglass_pose_estimation_torch.models import MSPN
+    from hourglass_pose_estimation_torch.models.norm import BatchNorm
+    torch.manual_seed(0)
+    kw = dict(num_stacks=2, num_classes=16, out_res=16, up_channel_num=64)
+    cpu = get_model('mspn', device='cpu', dtype=torch.float32, **kw)
+    x = torch.randn(4, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    bns = [(n, m) for n, m in cpu.named_modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        for n, m in bns:
+            m.momentum = 0.0
+            if n.endswith('cbr3.bn'):
+                m.weight.mul_(0.05)
+        cpu(x, train=True)
+    for _, m in bns:
+        m.momentum = 0.9
+    card = get_model('mspn', device=dev, dtype=torch.float32, **kw)
+    card.load_state_dict(cpu.state_dict())
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    for train in (True, False):
+        with torch.no_grad():
+            ref, got = cpu(x, train=train), card(x.to(dev), train=train).cpu()
+        assert got.shape == ref.shape == (8, 4, 16, 16, 16)
+        for h in range(8):
+            assert _rel(got[h], ref[h]) <= 1e-4, (train, h, _rel(got[h], ref[h]))
+    for a, b in zip(cpu.state_dict().values(), card.state_dict().values()):
+        assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(a.abs().max()) + 1e-7
+    assert all(w.launches == 0 for w in KERNEL_WRAPPERS)
+    bf16 = {}
+    for d in ('cpu', dev):
+        m = get_model('mspn', device=d, **kw)
+        m.load_state_dict(cpu.state_dict())
+        assert isinstance(m, MSPN) and m.compute_dtype == torch.bfloat16
+        with torch.no_grad():
+            bf16[d] = m(x.to(d)).cpu()
+    worst = [max(_rel(bf16[dev][h], r[h]) for h in range(8)) for r in (bf16['cpu'], ref)]
+    assert worst[0] <= 0.35 and worst[1] <= 0.35, worst
+    ties = torch.randint(0, 3, (2, 64, 33, 34), generator=torch.Generator().manual_seed(2))
+    g = torch.randint(-8, 9, (2, 64, 17, 17), generator=torch.Generator().manual_seed(3))
+    grads = []
+    for d in ('cpu', dev):
+        xt = ties.to(d, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        xt.requires_grad_()
+        F.max_pool2d(xt, 3, 2, 1).backward(g.to(d, torch.bfloat16))
+        grads.append(xt.grad.cpu())
+    assert torch.equal(grads[0], grads[1])

@@ -20,6 +20,8 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / 'hourglass_pose_estimation_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'hourglass_pose_estimation_tpu')
+# files that import no cv2 at all, not even where they run
+NO_CV2 = ('chip_smoke.py', 'interop.py', 'mspn.py', 'resize.py')
 
 # the reference torch model's counts (num_blocks=1, num_classes=16, sum)
 REFERENCE_COUNTS = {
@@ -47,6 +49,23 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_importing_the_port_loads_no_cv2():
+    """The card machine has no cv2: importing every module of the port,
+    `interop` and the MSPN model included, must not load it (the host
+    preprocess and the `estimate` CLI import it where they run)."""
+    code = (
+        'import importlib, sys\n'
+        f'for m in {_port_modules()!r}:\n'
+        '    importlib.import_module(m)\n'
+        'sys.exit(1 if "cv2" in sys.modules else 0)\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    r = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert {'hourglass_pose_estimation_torch.interop',
+            'hourglass_pose_estimation_torch.models.mspn'} <= set(_port_modules())
+
+
 def test_port_sources_import_no_jax():
     files = list(PKG.rglob('*.py')) + [REPO / 'chip_smoke.py']
     assert len(files) > 15
@@ -59,7 +78,8 @@ def test_port_sources_import_no_jax():
             elif isinstance(node, ast.ImportFrom) and node.module:
                 names = [node.module]
             bad += [f'{f.name}: {n}' for n in names
-                    if n.split('.')[0] in FORBIDDEN]
+                    if n.split('.')[0] in FORBIDDEN
+                    or (n.split('.')[0] == 'cv2' and f.name in NO_CV2)]
     assert not bad, bad
 
 

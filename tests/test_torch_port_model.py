@@ -168,8 +168,8 @@ def test_fused_path_takes_only_bf16_models(monkeypatch, dtype):
 
 def test_train_mode_raises_until_the_training_slice():
     """Train mode is ported (it runs and moves the running statistics), and
-    so is remat (the trainer slice); what waits for later slices still
-    raises: cross-device BN statistics and MSPN."""
+    so are remat (the trainer slice) and MSPN (its own slice); what waits
+    for later slices still raises: cross-device BN statistics."""
     model = HourglassNet(num_stacks=1, num_classes=4, num_feats=16)
     before = model.bn1.running_var.clone()
     out = model(torch.rand(2, 64, 64, 3), train=True)
@@ -178,8 +178,9 @@ def test_train_mode_raises_until_the_training_slice():
     assert get_model('hg', device='cpu', num_stacks=1, num_classes=4, remat=True).remat
     with pytest.raises(NotImplementedError, match='Queue 1'):
         get_model('hg', device='cpu', num_stacks=1, num_classes=4, bn_axis_name='batch')
-    with pytest.raises(NotImplementedError, match='mspn'):
-        get_model('mspn', device='cpu', num_stacks=1, num_classes=4)
+    from hourglass_pose_estimation_torch.models import MSPN
+    mspn = get_model('mspn', device='cpu', num_stacks=1, num_classes=4)
+    assert isinstance(mspn, MSPN) and mspn.num_stacks == 1 and mspn.num_classes == 4
 
 
 def test_load_jax_variables_is_strict():
