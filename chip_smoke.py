@@ -7,7 +7,8 @@ Phases (any failed check exits non-zero; no phase catches its own
 failure):
   1. the card's name and power limit (nvidia-smi), and a probe of what the
      host data layer could decode images with here (cv2, libjpeg,
-     jpeglib.h; it informs and fails nothing);
+     jpeglib.h, Pillow, and the native loader's build: available, or why
+     not; it informs and fails nothing);
   2. build the Hopper kernels from `hourglass_pose_estimation_torch/
      csrc/*.cu`, one nvcc per source, all started together, into the
      package's ignored build directory;
@@ -101,9 +102,29 @@ failure):
      the Estimator on it (1 decode a `run_batch`); the interop CLI's export
      to a reference-named .pth.tar and import back, whose served heatmaps
      equal the checkpoint's bit for bit;
- 15. the `kernels` JSON line (launches summed over the main paths of
-     phases 4, 6-11 and 12-14; the pool backward that splits ties is on
-     none of them), then the result line.
+ 15. the host data layer at full width (cv2 required): seeded trees of
+     JPEG files in the readers' formats, MPII (128 train and 64 valid
+     persons over 1280x720 images, scales 1.5 to 3.5, 16 valid persons at
+     0.9, gt_valid.mat) and COCO (64 persons a split over 640x480 images,
+     with a crowd, a zero-area and an all-zero-keypoint annotation);
+     the native loader's state and the slots each path filled; cv2's
+     decode ms of a 1280x720 JPEG, `canvas_batch` and `host_batch` ms of
+     32; cv2's file crops against the numpy warp_region (1 level); the
+     host pipeline's crops against the device pipeline's on the card
+     (median < 1 and p99 < 4 levels); the trainer CLI on
+     configs/train_mpii_8stack.yaml with the tree (2 epochs of 4 steps at
+     batch 32, the device pipeline: launches exact, the loss falling, the
+     producer's seconds beside the epoch's), `evaluate_only` with
+     EVAL.official and EVAL.gt_mat on its checkpoint_2 (the PCKh table and
+     pred.mat; (loss, PCK) equal to the trainer's; the decode launches),
+     the host pipeline (1 epoch: 1 render a batch through
+     prepare_host_batch, no device warp), a validation pass on
+     whole-image canvases (q = 0.2), and on configs/train_coco_8stack.yaml
+     the trainer (1 epoch of 2 steps) and `evaluate_only` with the DARK
+     decode (a results file row per valid person, a finite OKS table);
+ 16. the `kernels` JSON line (launches summed over the main paths of
+     phases 4, 6-11, 12-14 and 15; the pool backward that splits ties is
+     on none of them), then the result line.
 --profile adds torch.profiler breakdowns (by kernel, by launching
 PyTorch op, by kind) of one serving batch and of one train step, each for
 the hourglass and for MSPN, and the serving front end's rate alone.
@@ -249,6 +270,27 @@ TRAINER_OVERRIDES = ['DATASET.name=synthetic', 'DATASET.num_samples=128',
                      'TRAIN.epochs=3', 'TRAIN.steps_per_epoch=4',
                      f'TRAIN.freeze_bn_after_epoch={FREEZE_BN_AFTER}', 'COMMON.snapshot=1',
                      'TRAIN.learning_rate=2.5e-5']
+
+# the host data phase: seeded trees of JPEG files in the readers' formats.
+# MPII: 128 train and 64 valid persons, two a 1280x720 image, annotated
+# scales 1.5 to 3.5 (MPII's); the first 16 valid persons at 0.9, whose eval
+# crop region (0.9 * 1.25 * 200 + 4 = 229 px) fits a 256 canvas at q = 1.
+# COCO: 64 persons a split, two a 640x480 image. The flagship configs
+# with the trees' paths, a snapshot each epoch, lr 2.5e-5 (as the trainer
+# phase), 4 steps an epoch at batch 32 (COCO: 2, its 64 persons)
+HOST_MPII = dict(n_train=128, n_valid=64, image_size=(1280, 720), scales=(1.5, 3.5), n_small=16,
+                 small_scale=0.9)
+HOST_COCO = dict(n_persons=64, image_size=(640, 480))
+HOST_OVERRIDES = ['COMMON.snapshot=1', 'TRAIN.learning_rate=2.5e-5']
+HOST_STEPS, HOST_COCO_STEPS = 4, 2
+# cv2's crop of a file against the port's numpy warp_region on the same
+# decoded pixels: within 1 level (the rounding of the taps' weights), on
+# at most 1e-4 of the values (data/common.py::warp_region)
+TOL_CV2_WARP = (1, 1e-4)
+# the host pipeline's crops against the device pipeline's crop of the same
+# persons at q = 1, in levels: the bound the JAX package holds its own two
+# pipelines to (tests/test_pipeline.py), median and 99th percentile
+TOL_HOST_CROPS = (1.0, 4.0)
 
 
 def fail(msg: str) -> None:
@@ -1093,20 +1135,16 @@ def frozen_phase(state, raw, spec, seed: int, paths: dict) -> dict:
     return out
 
 
-def trainer_phase(paths: dict, tmp: str) -> dict:
-    """The trainer entry point at full width: `train_and_evaluate.main()` on
-    configs/train_mpii_8stack.yaml (8 stacks, 256^2 -> 64^2, bf16, train and
-    val batch 32, MODEL.fuse_block on) with TRAINER_OVERRIDES and its
-    checkpoints in the directory `tmp`, then a second `main()` resumed
-    from checkpoint_2. The Trainer is the CLI's own, instrumented to count
-    the launches of each train epoch and each validation pass."""
-    import numpy as np
+def counting_trainer(runs: list):
+    """The port's Trainer, instrumented: each one built is appended to
+    `runs`; it records each train epoch's and validation pass's launch
+    counts, the fused bottleneck's backward calls, the producer thread's
+    seconds (host packing, decoding included, and the copy's dispatch) and
+    the wall seconds; with COMMON.resume, the restored state against the
+    checkpoint."""
     import torch
-    from hourglass_pose_estimation_torch import train_and_evaluate as tae
     from hourglass_pose_estimation_torch.ops.hopper import fused_bottleneck
     from hourglass_pose_estimation_torch.runner.trainer import Trainer
-
-    runs = []
 
     class CountingTrainer(Trainer):
         def __init__(self, *args, **kwargs):
@@ -1134,10 +1172,10 @@ def trainer_phase(paths: dict, tmp: str) -> dict:
                 optimizer_tensors=sum(len(st) for st in opt['state'].values()),
                 optimizer_equal=(len(opt['state']) == len(sopt['state']) > 0 and opt_equal))
 
-        def _make_produce(self, ds, with_valid=False):
+        def _make_produce(self, *args, **kwargs):
             """The producer thread's seconds (host packing and the copy's
             dispatch) add up in `self.produce_s`."""
-            produce = super()._make_produce(ds, with_valid)
+            produce = super()._make_produce(*args, **kwargs)
 
             def timed(item):
                 t0 = time.perf_counter()
@@ -1150,37 +1188,48 @@ def trainer_phase(paths: dict, tmp: str) -> dict:
         def _train_epoch(self, epoch, rng):
             zero_counts()
             self.produce_s = 0.0
+            t0 = time.perf_counter()
             out = super()._train_epoch(epoch, rng)
             counts = read_counts()
             self.counts.append(dict(train=counts, backward_calls=fused_bottleneck.backward_calls,
-                                    train_produce_s=self.produce_s))
+                                    train_produce_s=self.produce_s,
+                                    train_s=time.perf_counter() - t0))
             return out
 
         def _evaluate(self):
             zero_counts()
+            self.produce_s = 0.0
+            t0 = time.perf_counter()
             out = super()._evaluate()
-            self.counts[-1]['val'] = read_counts()
+            self.counts[-1].update(val=read_counts(), val_produce_s=self.produce_s,
+                                   val_s=time.perf_counter() - t0)
             return out
 
-    cfg_path = str(REPO / 'configs' / 'train_mpii_8stack.yaml')
+    return CountingTrainer
+
+
+def trainer_phase(paths: dict, tmp: str) -> dict:
+    """The trainer entry point at full width: `train_and_evaluate.main()` on
+    configs/train_mpii_8stack.yaml (8 stacks, 256^2 -> 64^2, bf16, train and
+    val batch 32, MODEL.fuse_block on) with TRAINER_OVERRIDES and its
+    checkpoints in the directory `tmp`, then a second `main()` resumed
+    from checkpoint_2. The Trainer is the CLI's own, instrumented to count
+    the launches of each train epoch and each validation pass."""
+    import numpy as np
+    import torch
+
+    runs = []
+    CountingTrainer = counting_trainer(runs)
+
+    argv = [str(REPO / 'configs' / 'train_mpii_8stack.yaml')] + TRAINER_OVERRIDES + [
+        f'COMMON.checkpoint_dir={tmp}']
     out = {}
-    saved_trainer = tae.Trainer
-    tae.Trainer = CountingTrainer
     torch.cuda.reset_peak_memory_stats()
-    try:
-        overrides = TRAINER_OVERRIDES + [f'COMMON.checkpoint_dir={tmp}']
-        t0 = time.time()
-        check(tae.main([cfg_path] + overrides) == 0, 'trainer: main() failed')
-        out['run_s'] = time.time() - t0
-        ckpts = next(Path(tmp).glob('*/ckpts'))
-        written = sorted(p.name for p in ckpts.iterdir())
-        t0 = time.time()
-        check(tae.main([cfg_path] + overrides
-                       + [f'COMMON.resume={ckpts / "checkpoint_2"}']) == 0,
-              'trainer: resumed main() failed')
-        out['resume_run_s'] = time.time() - t0
-    finally:
-        tae.Trainer = saved_trainer
+    out['run_s'] = run_main(argv, 'trainer', Trainer=CountingTrainer)
+    ckpts = next(Path(tmp).glob('*/ckpts'))
+    written = sorted(p.name for p in ckpts.iterdir())
+    out['resume_run_s'] = run_main(argv + [f'COMMON.resume={ckpts / "checkpoint_2"}'],
+                                   'trainer, resumed', Trainer=CountingTrainer)
     out['max_memory_allocated_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
     check(len(runs) == 2, f'trainer: {len(runs)} Trainers built, not 2')
     first, resumed = runs
@@ -1291,22 +1340,13 @@ def switch_agreement(hm_on, hm_off, kp_on, kp_off, kp_plain, pixel, slack_px: fl
     return out
 
 
-def evaluator_phase(tmp: str, trainer: dict, paths: dict) -> dict:
-    """The standalone evaluator at full width: `train_and_evaluate.main()`
-    with COMMON.evaluate_only on the trainer phase's checkpoint_3 (the
-    flagship config with TRAINER_OVERRIDES: 128 synthetic val samples at
-    batch 32, EVAL.flip_test on) and EVAL.official, the Evaluator the CLI's
-    own, instrumented to count each pass's launches; then the flip-test
-    keypoints with the kernels off, and with EVAL.decode=dark, its decode
-    on the card (TF32 on) against the CPU on the same heatmaps."""
-    import numpy as np
+def counting_evaluator(calls: list):
+    """The port's Evaluator, instrumented: each call of `evaluate`,
+    `predict_keypoints` and `evaluate_official` appends to `calls` its name,
+    wall seconds (synchronised), launch counts, result, state and the
+    Evaluator."""
     import torch
-    from hourglass_pose_estimation_torch import train_and_evaluate as tae
-    from hourglass_pose_estimation_torch.config import load_config
-    from hourglass_pose_estimation_torch.ops.decode import decode_dark, decode_quarter_offset
-    from hourglass_pose_estimation_torch.runner import Evaluator, TrainState
-
-    calls = []
+    from hourglass_pose_estimation_torch.runner import Evaluator
 
     class CountingEvaluator(Evaluator):
         def _count(self, what, fn, *args, **kwargs):
@@ -1329,18 +1369,47 @@ def evaluator_phase(tmp: str, trainer: dict, paths: dict) -> dict:
         def evaluate_official(self, state, output_dir=None):
             return self._count('evaluate_official', super().evaluate_official, state, output_dir)
 
+    return CountingEvaluator
+
+
+def run_main(argv, what: str, **classes) -> float:
+    """`train_and_evaluate.main(argv)` with its Trainer or Evaluator replaced
+    by `classes` (restored after), checked to exit 0 -> its wall seconds."""
+    from hourglass_pose_estimation_torch import train_and_evaluate as tae
+    saved = {k: getattr(tae, k) for k in classes}
+    for k, v in classes.items():
+        setattr(tae, k, v)
+    try:
+        t0 = time.time()
+        check(tae.main(argv) == 0, f'{what}: main() failed')
+        return time.time() - t0
+    finally:
+        for k, v in saved.items():
+            setattr(tae, k, v)
+
+
+def evaluator_phase(tmp: str, trainer: dict, paths: dict) -> dict:
+    """The standalone evaluator at full width: `train_and_evaluate.main()`
+    with COMMON.evaluate_only on the trainer phase's checkpoint_3 (the
+    flagship config with TRAINER_OVERRIDES: 128 synthetic val samples at
+    batch 32, EVAL.flip_test on) and EVAL.official, the Evaluator the CLI's
+    own, instrumented to count each pass's launches; then the flip-test
+    keypoints with the kernels off, and with EVAL.decode=dark, its decode
+    on the card (TF32 on) against the CPU on the same heatmaps."""
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch.config import load_config
+    from hourglass_pose_estimation_torch.ops.decode import decode_dark, decode_quarter_offset
+    from hourglass_pose_estimation_torch.runner import Evaluator, TrainState
+
+    calls = []
+    CountingEvaluator = counting_evaluator(calls)
+
     cfg_path = str(REPO / 'configs' / 'train_mpii_8stack.yaml')
     argv = [cfg_path] + TRAINER_OVERRIDES + [
         f'COMMON.checkpoint_dir={tmp}', 'COMMON.evaluate_only=True',
         f'COMMON.resume={trainer["checkpoint"]}', 'EVAL.official=True']
-    saved = tae.Evaluator
-    tae.Evaluator = CountingEvaluator
-    try:
-        t0 = time.time()
-        check(tae.main(argv) == 0, 'evaluator: main() failed')
-        main_s = time.time() - t0
-    finally:
-        tae.Evaluator = saved
+    main_s = run_main(argv, 'evaluator', Evaluator=CountingEvaluator)
     check([c['what'] for c in calls] == ['evaluate', 'predict_keypoints', 'evaluate_official'],
           f"evaluator: calls {[c['what'] for c in calls]}")
     ev_call, pk_call, off_call = calls
@@ -1483,10 +1552,11 @@ def estimator_phase(ckpt: str, seed: int, paths: dict) -> dict:
 
 def host_data_probe() -> dict:
     """What the host data layer could read images with on this machine: cv2
-    (its version, imported in a child process, so that this one never
-    loads it), libjpeg (the native loader links -ljpeg: the linker's name
-    for it, and the libjpeg files in the usual library directories),
-    jpeglib.h, and Pillow. Informs only."""
+    (its version, imported in a child process), the native loader
+    (built here from native/hostloader.cpp, or why it is not), libjpeg (the
+    native loader links -ljpeg: the linker's name for it, and the libjpeg
+    files in the usual library directories), jpeglib.h, and Pillow.
+    Informs only."""
     import ctypes.util
     import importlib.util
     r = subprocess.run([sys.executable, '-c', 'import cv2; print(cv2.__version__)'],
@@ -1496,12 +1566,280 @@ def host_data_probe() -> dict:
                '/usr/lib/aarch64-linux-gnu']
     incdirs = ['/usr/include', '/usr/local/include', '/usr/include/x86_64-linux-gnu',
                '/usr/include/aarch64-linux-gnu']
+    from hourglass_pose_estimation_torch.data import native
     return dict(cv2=cv2, cv2_imports=r.returncode == 0,
+                native_loader=native.available(),
+                native_unavailable_reason=native.unavailable_reason(),
                 libjpeg=ctypes.util.find_library('jpeg'),
                 libjpeg_files=sorted(str(p) for d in libdirs for p in Path(d).glob('libjpeg*')),
                 jpeglib_h=[d for d in incdirs if Path(d, 'jpeglib.h').is_file()],
                 pillow=importlib.util.find_spec('PIL') is not None)
 
+
+class count_warps:
+    """Counts the device pipeline's crop warps (`data.pipeline`'s gather and
+    separable warp) while active."""
+
+    def __enter__(self):
+        from hourglass_pose_estimation_torch.data import pipeline
+        self.n, self._saved = 0, {}
+        for name in ('affine_warp', 'affine_warp_separable'):
+            fn = self._saved[name] = getattr(pipeline, name)
+            setattr(pipeline, name, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def counted(*args, **kwargs):
+            self.n += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    def __exit__(self, *exc):
+        from hourglass_pose_estimation_torch.data import pipeline
+        for name, fn in self._saved.items():
+            setattr(pipeline, name, fn)
+
+
+def host_data_timings(ds, cv2, batch: int) -> dict:
+    """Host costs on this machine: cv2's decode of each image file of `ds`
+    (ms, median of up to 32), `canvas_batch` of `batch` persons in crop mode
+    and `host_batch` of `batch` (ms, median of 4 batches each)."""
+    import numpy as np
+    files = sorted(set(ds.records.image_paths))
+    decode = []
+    for f in files[:32]:
+        t0 = time.perf_counter()
+        img = cv2.imread(f, cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+        decode.append(time.perf_counter() - t0)
+        check(img is not None, f'host data: cv2 cannot read {f}')
+    canvas, host = [], []
+    for k in range(4):
+        idx = list(range(k * batch, (k + 1) * batch))
+        t0 = time.perf_counter()
+        ds.canvas_batch(idx, canvas=RES, crop_aware=True)
+        canvas.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ds.host_batch(idx, np.random.RandomState(k))
+        host.append(time.perf_counter() - t0)
+    med = lambda ts: float(np.median(ts)) * 1e3
+    return dict(image=list(img.shape), decode_ms=med(decode), canvas_batch_ms=med(canvas),
+                host_batch_ms=med(host), batch=batch, slot_paths=dict(ds.slot_paths))
+
+
+def host_epochs(what: str, run, steps: int, paths: dict, per_step: dict, per_val: dict) -> dict:
+    """Check each epoch of a counting Trainer: its launches exact, every
+    value finite; print the epoch with its producer and wall seconds; add
+    its launches to paths[what] -> the last epoch's history."""
+    import numpy as np
+    nval = len(run.val_loader)
+    total = {}
+    for h, c in zip(run.history, run.counts):
+        expect_counts(c['train'], f"{what} epoch {h['epoch']} train",
+                      **{k: v * steps for k, v in per_step.items()})
+        expect_counts(c['val'], f"{what} epoch {h['epoch']} val",
+                      **{k: v * nval for k, v in per_val.items()})
+        check(all(np.isfinite(v) for v in h.values()), f'{what}: not finite: {h}')
+        for k in c['train']:
+            total[k] = total.get(k, 0) + c['train'][k] + c['val'][k]
+        print(f'{what} epoch: ' + json.dumps(dict(
+            h, train_produce_s=c['train_produce_s'], train_s=c['train_s'],
+            val_produce_s=c['val_produce_s'], val_s=c['val_s'], launches_train=c['train'],
+            launches_val=c['val'])), flush=True)
+    paths[what.replace(' ', '_')] = total
+    return run.history[-1]
+
+
+def host_data_phase(tmp: str, seed: int, paths: dict, card: str, device='cuda') -> dict:
+    """The host data layer at full width: seeded MPII and COCO trees of JPEG
+    files (HOST_MPII, HOST_COCO) read through the readers, cv2 (required)
+    and the native loader where it builds; the trainer CLI on
+    configs/train_mpii_8stack.yaml under the device pipeline (2 epochs) and
+    `evaluate_only` with EVAL.official and the tree's gt_valid.mat on its
+    checkpoint_2; the host pipeline (1 epoch, targets by
+    prepare_host_batch, no device warp); the host crops against the device
+    pipeline's on the card; a validation pass on whole-image canvases
+    (q = 0.2); the trainer CLI and `evaluate_only` (DARK) on
+    configs/train_coco_8stack.yaml."""
+    import numpy as np
+    import torch
+    from scipy.io import loadmat
+    from hourglass_pose_estimation_torch.data import (
+        crop_batch, fabricate, get_dataset, make_spec, native, sample_augmentations, to_device)
+    from hourglass_pose_estimation_torch.data.common import warp_region
+    try:
+        import cv2
+    except ImportError as e:
+        fail(f'host data: cv2 does not import here: {e}')
+    loader = dict(cv2=cv2.__version__, native_available=native.available(),
+                  native_unavailable_reason=native.unavailable_reason())
+    print('host data loader: ' + json.dumps(loader), flush=True)
+    t0 = time.time()
+    img, ann, gt = fabricate.mpii_tree(str(Path(tmp, 'mpii')), np.random.RandomState(seed + 21),
+                                       **HOST_MPII)
+    cimg, cann = fabricate.coco_tree(str(Path(tmp, 'coco')), np.random.RandomState(seed + 22),
+                                     **HOST_COCO)
+    trees_s = time.time() - t0
+    mpii_cfg = [str(REPO / 'configs' / 'train_mpii_8stack.yaml'), f'DATASET.image_path={img}',
+                f'DATASET.annotation_path={ann}'] + HOST_OVERRIDES
+    coco_cfg = [str(REPO / 'configs' / 'train_coco_8stack.yaml'), f'DATASET.image_path={cimg}',
+                f'DATASET.annotation_path={cann}'] + HOST_OVERRIDES
+    per_step = dict(upsample2x_add=32, upsample2x_add_bwd=32, maxpool2x2_fwd=33,
+                    maxpool2x2_bwd_first=33, render_gaussian=1)
+    per_val = {fused_name(): 65, 'upsample2x_add': 32, 'maxpool2x2_fwd': 33,
+               'render_gaussian': 1}
+    per_predict = {fused_name(): 130, 'upsample2x_add': 64, 'maxpool2x2_fwd': 66}
+
+    # the host's costs, and cv2's file crops against the numpy warp
+    train_ds = get_dataset('mpii', True, image_path=img, annotation_path=ann)
+    timings = host_data_timings(train_ds, cv2, HOST_MPII['n_train'] // 4)
+    val_ds = get_dataset('mpii', False, image_path=img, annotation_path=ann)
+    small = list(range(HOST_MPII['n_small']))
+    saved = native.load_region_batch
+    native.load_region_batch = lambda *a, **k: None             # every slot through cv2
+    try:
+        raw = val_ds.canvas_batch(small, canvas=RES, crop_aware=True)
+    finally:
+        native.load_region_batch = saved
+    check(bool((raw['canvas_scale'] == 1).all()), f"host data: q {raw['canvas_scale']}")
+    worst = (0, 0.0)
+    for k, i in enumerate(small):
+        src = cv2.imread(val_ds.records.image_paths[i],
+                         cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+        ox, oy = raw['canvas_offset'][k]
+        diff = np.abs(raw['canvas'][k].astype(int) - warp_region(src, 1.0, ox, oy, RES))
+        worst = max(worst, (int(diff.max()), float((diff > 0).mean())))
+    check(worst[0] <= TOL_CV2_WARP[0] and worst[1] <= TOL_CV2_WARP[1],
+          f'host data: cv2 crops vs warp_region {worst}')
+
+    # the host pipeline's crops of the small persons against the device
+    # pipeline's crop of their canvases on the card (no normalisation)
+    host = val_ds.host_batch(small, np.random.RandomState(0), train=False)['image']
+    spec = make_spec(val_ds)._replace(mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0))
+    dev = to_device(val_ds.canvas_batch(small, canvas=RES, crop_aware=True), device)
+    draws = sample_augmentations(None, dev['scale'], scale_factor=spec.scale_factor,
+                                 rot_factor=spec.rot_factor, train=False)
+    crop = crop_batch(dev, draws, spec, False)['image'] * 255.0
+    d = (crop - torch.from_numpy(host).to(device, torch.float32)).abs().flatten().cpu().numpy()
+    crops = dict(persons=len(small), median=float(np.median(d)), p99=float(np.percentile(d, 99)),
+                 max=float(d.max()))
+    check(crops['median'] < TOL_HOST_CROPS[0] and crops['p99'] < TOL_HOST_CROPS[1],
+          f'host data: host crops vs device crops {crops}')
+
+    # MPII files, the device pipeline: the trainer CLI, then evaluate_only
+    runs, calls = [], []
+    run_dir = str(Path(tmp, 'mpii_run'))
+    with count_warps() as warps:
+        train_s = run_main(mpii_cfg + ['TRAIN.epochs=2', f'TRAIN.steps_per_epoch={HOST_STEPS}',
+                                       f'COMMON.checkpoint_dir={run_dir}'],
+                           'host data, mpii trainer', Trainer=counting_trainer(runs))
+    (tr,) = runs
+    nval = len(tr.val_loader)
+    check(tr.steps_per_epoch == HOST_STEPS and tr.crop_aware and tr.device_pipeline
+          and tr.val_ds.name == 'mpii' and len(tr.val_ds) == HOST_MPII['n_valid']
+          and nval == -(-HOST_MPII['n_valid'] // tr.cfg.train.val_batch),
+          f'host data, mpii trainer: {tr.steps_per_epoch} steps, {nval} val batches')
+    check(warps.n == 2 * (HOST_STEPS + nval), f'host data, mpii trainer: {warps.n} warps')
+    last = host_epochs('host mpii trainer', tr, HOST_STEPS, paths, per_step, per_val)
+    check(tr.history[1]['train_loss'] < tr.history[0]['train_loss'],
+          f"host data, mpii trainer: loss {[h['train_loss'] for h in tr.history]}")
+    mpii_slots = dict(train=dict(tr.train_ds.slot_paths), val=dict(tr.val_ds.slot_paths))
+    ckpt = next(Path(run_dir).glob('*/ckpts')) / 'checkpoint_2'
+    eval_s = run_main(mpii_cfg + [f'COMMON.checkpoint_dir={run_dir}', 'COMMON.evaluate_only=True',
+                                  f'COMMON.resume={ckpt}', 'EVAL.official=True', f'EVAL.gt_mat={gt}'],
+                      'host data, mpii evaluator', Evaluator=counting_evaluator(calls))
+    check([c['what'] for c in calls] == ['evaluate', 'predict_keypoints', 'evaluate_official'],
+          f"host data, mpii evaluator: calls {[c['what'] for c in calls]}")
+    ev_call, pk_call, off_call = calls
+    ev = ev_call['evaluator']
+    expect_counts(ev_call['counts'], 'host data, mpii evaluate',
+                  **{k: nval * v for k, v in per_val.items()})
+    expect_counts(pk_call['counts'], 'host data, mpii predict_keypoints',
+                  **{k: nval * v for k, v in per_predict.items()}, decode_peaks=nval)
+    paths['host_mpii_evaluate'], paths['host_mpii_predict'] = ev_call['counts'], pk_call['counts']
+    (loss, acc), table = ev_call['out'], off_call['out']
+    check(abs(loss - last['val_loss']) <= TOL_EVALUATOR * abs(last['val_loss'])
+          and abs(acc - last['val_acc']) <= TOL_EVALUATOR * abs(last['val_acc']),
+          f"host data, mpii evaluator: ({loss}, {acc}) against the trainer's "
+          f"({last['val_loss']}, {last['val_acc']})")
+    pred = loadmat(str(Path(ev.cfg.common.checkpoint_dir, 'pred.mat')))['preds']
+    check(list(table) == ['Head', 'Shoulder', 'Elbow', 'Wrist', 'Hip', 'Knee', 'Ankle', 'Mean',
+                          'Mean@0.1'] and all(np.isfinite(v) for v in table.values())
+          and pred.shape == (HOST_MPII['n_valid'], 16, 2) and np.isfinite(pred).all(),
+          f'host data, mpii PCKh {table}, pred.mat {pred.shape}')
+
+    # the host pipeline: 1 epoch of the same CLI, no device warp
+    runs = []
+    with count_warps() as warps:
+        host_s = run_main(mpii_cfg + ['DATASET.device_pipeline=false', 'TRAIN.epochs=1',
+                                      f'TRAIN.steps_per_epoch={HOST_STEPS}',
+                                      f"COMMON.checkpoint_dir={Path(tmp, 'host_run')}"],
+                          'host data, host pipeline', Trainer=counting_trainer(runs))
+    (hp,) = runs
+    check(not hp.device_pipeline and warps.n == 0, f'host data, host pipeline: {warps.n} warps')
+    host_last = host_epochs('host pipeline trainer', hp, HOST_STEPS, paths, per_step, per_val)
+
+    # whole-image canvases (q = 256/1280): one validation pass of checkpoint_2
+    calls = []
+    whole_s = run_main(mpii_cfg + [f"COMMON.checkpoint_dir={Path(tmp, 'whole_run')}",
+                                   'COMMON.evaluate_only=True', f'COMMON.resume={ckpt}',
+                                   'DATASET.canvas_mode=image'],
+                       'host data, whole image', Evaluator=counting_evaluator(calls))
+    check([c['what'] for c in calls] == ['evaluate'], f'host data, whole image: {calls}')
+    wev = calls[0]['evaluator']
+    q = wev.ds.canvas_batch([0], canvas=wev.canvas)['canvas_scale'][0]
+    check(not wev.crop_aware and q == np.float32(RES / HOST_MPII['image_size'][0]),
+          f'host data, whole image: q {q}')
+    expect_counts(calls[0]['counts'], 'host data, whole image',
+                  **{k: nval * v for k, v in per_val.items()})
+    paths['host_whole_image'] = calls[0]['counts']
+    whole = calls[0]['out']
+    check(np.isfinite(whole).all(), f'host data, whole image: {whole}')
+
+    # COCO files: the trainer CLI, then evaluate_only (DARK, EVAL.official)
+    runs, calls = [], []
+    coco_dir = str(Path(tmp, 'coco_run'))
+    coco_s = run_main(coco_cfg + ['TRAIN.epochs=1', f'TRAIN.steps_per_epoch={HOST_COCO_STEPS}',
+                                  f'COMMON.checkpoint_dir={coco_dir}'],
+                      'host data, coco trainer', Trainer=counting_trainer(runs))
+    (ct,) = runs
+    cval = len(ct.val_loader)
+    check(ct.num_classes == 17 and ct.steps_per_epoch == HOST_COCO_STEPS
+          and len(ct.val_ds) == HOST_COCO['n_persons'],
+          f'host data, coco trainer: {ct.num_classes} joints, {ct.steps_per_epoch} steps')
+    host_epochs('host coco trainer', ct, HOST_COCO_STEPS, paths, per_step, per_val)
+    cckpt = next(Path(coco_dir).glob('*/ckpts')) / 'checkpoint_1'
+    run_main(coco_cfg + [f'COMMON.checkpoint_dir={coco_dir}', 'COMMON.evaluate_only=True',
+                         f'COMMON.resume={cckpt}', 'EVAL.official=True'],
+             'host data, coco evaluator', Evaluator=counting_evaluator(calls))
+    check([c['what'] for c in calls] == ['evaluate', 'predict_keypoints', 'evaluate_official'],
+          f"host data, coco evaluator: calls {[c['what'] for c in calls]}")
+    cev = calls[0]['evaluator']
+    check(cev.cfg.eval.decode == 'dark', f'host data, coco: decode {cev.cfg.eval.decode}')
+    expect_counts(calls[1]['counts'], 'host data, coco predict_keypoints (DARK)',
+                  **{k: cval * v for k, v in per_predict.items()})
+    paths['host_coco_evaluate'], paths['host_coco_predict'] = calls[0]['counts'], calls[1]['counts']
+    oks = calls[2]['out']
+    rows = json.loads(Path(oks.pop('results_file')).read_text())
+    check(len(rows) == len(cev.ds) == HOST_COCO['n_persons']
+          and [r['image_id'] for r in rows] == cev.ds.image_ids.tolist()
+          and all(len(r['keypoints']) == 3 * 17 for r in rows),
+          f'host data, coco results file: {len(rows)} rows')
+    check(oks.keys() == {'AR', 'AR50', 'AR75', 'mean_oks'} and all(np.isfinite(v) for v in oks.values()),
+          f'host data, coco OKS {oks}')
+
+    # is a file-fed epoch host-bound? the producer's seconds against the epoch's
+    epoch = tr.counts[-1]
+    out = dict(card=card, loader=loader, trees_s=trees_s, timings=timings, cv2_vs_warp_region=worst,
+               host_vs_device_crops=crops, slots=mpii_slots, device_pipeline_warps=2 * (HOST_STEPS + nval),
+               mpii_train_s=train_s, mpii_eval_s=eval_s, host_pipeline_s=host_s, whole_image_s=whole_s,
+               coco_train_s=coco_s, pckh=table, mpii_val=(last['val_loss'], last['val_acc']),
+               host_pipeline_val=(host_last['val_loss'], host_last['val_acc']),
+               whole_image_val=whole, coco_oks=oks,
+               producer_s_per_epoch=epoch['train_produce_s'], epoch_train_s=epoch['train_s'],
+               host_pipeline_producer_s=hp.counts[-1]['train_produce_s'],
+               host_pipeline_epoch_train_s=hp.counts[-1]['train_s'])
+    print('host data: ' + json.dumps(out), flush=True)
+    return out
 
 def mspn_model(seed: int, device='cuda'):
     """The full-width MSPN of MSPN_OVERRIDES (2 stages, 16 joints, decoder
@@ -1677,39 +2015,13 @@ def mspn_trainer_phase(paths: dict, tmp: str) -> dict:
     each epoch), each epoch's launches counted: 1 render a train step and a
     val batch, nothing else."""
     import numpy as np
-    from hourglass_pose_estimation_torch import train_and_evaluate as tae
-    from hourglass_pose_estimation_torch.runner.trainer import Trainer
 
     runs = []
+    CountingTrainer = counting_trainer(runs)
 
-    class CountingTrainer(Trainer):
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            self.counts = []
-            runs.append(self)
-
-        def _train_epoch(self, epoch, rng):
-            zero_counts()
-            out = super()._train_epoch(epoch, rng)
-            self.counts.append(dict(train=read_counts()))
-            return out
-
-        def _evaluate(self):
-            zero_counts()
-            out = super()._evaluate()
-            self.counts[-1]['val'] = read_counts()
-            return out
-
-    saved = tae.Trainer
-    tae.Trainer = CountingTrainer
-    try:
-        t0 = time.time()
-        check(tae.main([str(REPO / 'configs' / 'train_mpii_8stack.yaml')] + MSPN_OVERRIDES
-                       + MSPN_TRAINER + [f'COMMON.checkpoint_dir={tmp}']) == 0,
-              'mspn trainer: main() failed')
-        run_s = time.time() - t0
-    finally:
-        tae.Trainer = saved
+    run_s = run_main([str(REPO / 'configs' / 'train_mpii_8stack.yaml')] + MSPN_OVERRIDES
+                     + MSPN_TRAINER + [f'COMMON.checkpoint_dir={tmp}'], 'mspn trainer',
+                     Trainer=CountingTrainer)
     check(len(runs) == 1, f'mspn trainer: {len(runs)} Trainers')
     (tr,) = runs
     check(type(tr.model).__name__ == 'MSPN' and tr.steps_per_epoch == MSPN_STEPS,
@@ -1748,7 +2060,6 @@ def mspn_evaluator_phase(tmp: str, trainer: dict, paths: dict) -> dict:
     table."""
     import numpy as np
     import torch
-    from hourglass_pose_estimation_torch import train_and_evaluate as tae
     from hourglass_pose_estimation_torch.runner import Evaluator
 
     calls = []
@@ -1771,18 +2082,11 @@ def mspn_evaluator_phase(tmp: str, trainer: dict, paths: dict) -> dict:
             return self._count('predict_keypoints', super().predict_keypoints, state,
                                flip_test, return_scores)
 
-    saved = tae.Evaluator
-    tae.Evaluator = CountingEvaluator
-    try:
-        t0 = time.time()
-        check(tae.main([str(REPO / 'configs' / 'train_mpii_8stack.yaml')] + MSPN_OVERRIDES
-                       + MSPN_TRAINER + [f'COMMON.checkpoint_dir={tmp}',
-                                         'COMMON.evaluate_only=True', 'EVAL.official=True',
-                                         f'COMMON.resume={trainer["checkpoint"]}']) == 0,
-              'mspn evaluator: main() failed')
-        main_s = time.time() - t0
-    finally:
-        tae.Evaluator = saved
+    main_s = run_main([str(REPO / 'configs' / 'train_mpii_8stack.yaml')] + MSPN_OVERRIDES
+                      + MSPN_TRAINER + [f'COMMON.checkpoint_dir={tmp}',
+                                        'COMMON.evaluate_only=True', 'EVAL.official=True',
+                                        f'COMMON.resume={trainer["checkpoint"]}'],
+                      'mspn evaluator', Evaluator=CountingEvaluator)
     check([c['what'] for c in calls] == ['evaluate', 'predict_keypoints'],
           f"mspn evaluator: calls {[c['what'] for c in calls]}")
     ev, pk = calls
@@ -2132,8 +2436,14 @@ def main(argv=None) -> int:
         mspn_estimation = mspn_estimator_phase(mspn_trainer['checkpoint'], args.seed, paths)
         torch.cuda.empty_cache()
         mspn_interop_phase(mspn_trainer['checkpoint'], tmp, args.seed)
+    torch.cuda.empty_cache()
 
-    # 15. the kernels, with their launches on the main paths
+    # 15. the host data layer: MPII and COCO trees of JPEG files through the
+    # readers, both pipelines, whole-image canvases, the official metrics
+    with tempfile.TemporaryDirectory() as tmp:
+        host = host_data_phase(tmp, args.seed, paths, card)
+
+    # 16. the kernels, with their launches on the main paths
     for r in rows:
         r['launches'] = sum(p[r['name']] for p in paths.values())
         r['launches_by_path'] = {k: p[r['name']] for k, p in paths.items()}
@@ -2155,6 +2465,16 @@ def main(argv=None) -> int:
           f'{mspn_serve["served_images_per_s"]:.1f} img/s, batch-1 '
           f'{mspn_serve["fn_batch1_ms_p50"]:.2f} ms; trainer {mspn_trainer["run_s"]:.1f} s for '
           f'2 epochs; estimator run p50 {mspn_estimation["run_ms_p50"]:.2f} ms', flush=True)
+    t = host['timings']
+    print(f"card: {card}; host data: cv2 {host['loader']['cv2']}, native loader "
+          f"{'available' if host['loader']['native_available'] else 'unavailable'} "
+          f"({host['loader']['native_unavailable_reason']}), slots {host['slots']}; decode "
+          f"{t['decode_ms']:.2f} ms per {t['image'][1]}x{t['image'][0]} JPEG, canvas_batch "
+          f"{t['canvas_batch_ms']:.1f} ms and host_batch {t['host_batch_ms']:.1f} ms per "
+          f"{t['batch']}; file-fed epoch: producer {host['producer_s_per_epoch']:.2f} s of "
+          f"{host['epoch_train_s']:.2f} s (device pipeline), "
+          f"{host['host_pipeline_producer_s']:.2f} s of {host['host_pipeline_epoch_train_s']:.2f} s "
+          '(host pipeline)', flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.time() - t_start:.1f} s', flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

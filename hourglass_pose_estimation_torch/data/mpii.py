@@ -1,26 +1,79 @@
-"""MPII's official PCKh@0.5 evaluation (the metric half of
-`hourglass_pose_estimation_tpu/data/mpii.py`).
+"""MPII (16 joints): the reader and the official PCKh@0.5 evaluation.
 
-`evaluate_pckh` reproduces the reference's evaluator (its
-datasets/mpii.py:91-176: SC_BIAS=0.6 head-size normalisation, the
-per-group table, pelvis and thorax masked out of the mean) and
-`save_pred_mat` writes the submission artifact. The MPII reader (image
-files, the annotation JSON) is not ported yet: `get_dataset('mpii')`
-refuses it until the host-data slice (ROADMAP Queue 1 item 9) brings it.
+Port of `hourglass_pose_estimation_tpu/data/mpii.py`. The reader follows
+the reference's datasets/mpii.py:43-89: one JSON list per split
+(`train.json`, `valid.json`) of {image, center, scale, joints,
+joints_vis}; the center moves down by 15 * scale and the scale grows by
+1.25 (where the center is not -1), and coordinates go from MATLAB's
+1-based to 0-based. `evaluate_pckh` reproduces the reference's evaluator
+(its mpii.py:91-176: SC_BIAS=0.6 head-size normalisation, the per-group
+table, pelvis and thorax masked out of the mean) and `save_pred_mat`
+writes the submission artifact.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from collections import OrderedDict
 from typing import Dict, Tuple
 
 import numpy as np
 
+from hourglass_pose_estimation_torch.data.common import PoseDataset, PoseRecords, register
+
 # index order of the 16 MPII joints
 MPII_JOINT_NAMES = ['rank', 'rkne', 'rhip', 'lhip', 'lkne', 'lank',
                     'pelv', 'thor', 'neck', 'head',
                     'rwri', 'relb', 'rsho', 'lsho', 'lelb', 'lwri']
+
+
+@register
+class MPII(PoseDataset):
+    name = 'mpii'
+    n_joints = 16
+    flip_pairs = [[0, 5], [1, 4], [2, 3], [10, 15], [11, 14], [12, 13]]
+
+    def __init__(self, is_train: bool, *, image_path='', annotation_path='',
+                 flip=True, label_type='Gaussian', device_pipeline=True,
+                 num_samples=0, **kwargs):
+        self.images_dir = image_path
+        self.anno_dir = annotation_path
+        self.image_set = 'train' if is_train else 'valid'
+        super().__init__(is_train, **kwargs)
+
+    def _load_records(self) -> PoseRecords:
+        fname = os.path.join(self.anno_dir, self.image_set + '.json')
+        with open(fname) as fp:
+            anno = json.load(fp)
+
+        N = len(anno)
+        centers = np.zeros((N, 2), np.float32)
+        scales = np.zeros((N, 2), np.float32)
+        joints = np.zeros((N, self.n_joints, 2), np.float32)
+        vis = np.zeros((N, self.n_joints), np.float32)
+        widths = np.zeros((N,), np.float32)
+        paths = []
+        for i, a in enumerate(anno):
+            c = np.array(a['center'], np.float64)
+            s = np.array([a['scale'], a['scale']], np.float64)
+            if c[0] != -1:
+                c[1] = c[1] + 15 * s[1]
+                s = s * 1.25
+            c = c - 1  # matlab 1-based -> 0-based
+            j = np.array(a['joints'], np.float64)
+            j[:, :2] -= 1
+            v = np.array(a['joints_vis'], np.float64)
+            centers[i] = c
+            scales[i] = s
+            joints[i] = j[:, :2]
+            vis[i] = v
+            # the annotations store no width: the pipelines read it from the
+            # image (the flip needs it)
+            widths[i] = -1.0
+            paths.append(os.path.join(self.images_dir, a['image']))
+        return PoseRecords(centers=centers, scales=scales, joints=joints,
+                           vis=vis, widths=widths, image_paths=paths)
 
 
 def save_pred_mat(preds: np.ndarray, output_dir: str) -> str:

@@ -18,6 +18,9 @@ uint8 canvases and person geometry, on the batch's device,
 
 torch and jax.random streams differ, so `augment_batch` takes the draws
 as an input; the train step draws them from a generator per step.
+
+`prepare_host_batch` is the device tail of the host (cv2) pipeline: steps
+4 and 5 on crops the host already warped.
 """
 
 from __future__ import annotations
@@ -82,6 +85,14 @@ def to_device(batch, device) -> dict:
             for k, v in batch.items()}
 
 
+def normalize(imgs: torch.Tensor, spec: PipelineSpec) -> torch.Tensor:
+    """BGR 0-255 images (uint8 or f32) -> f32 (x / 255 - mean) / std."""
+    f32 = torch.float32
+    mean = torch.tensor(spec.mean, dtype=f32, device=imgs.device)
+    std = torch.tensor(spec.std, dtype=f32, device=imgs.device)
+    return (imgs.to(f32) / 255.0 - mean) / std
+
+
 def crop_batch(batch, draws, spec: PipelineSpec, train: bool) -> dict:
     """Canvases -> normalised inputs and their geometry, on the batch's
     device: `augment_batch` without the targets (what a forward that
@@ -137,11 +148,8 @@ def crop_batch(batch, draws, spec: PipelineSpec, train: bool) -> dict:
         imgs = affine_warp(canvas, inv_canvas, (R, R))
     else:
         imgs = affine_warp_separable(canvas, inv_canvas, (R, R))
-    mean = torch.tensor(spec.mean, dtype=f32, device=dev)
-    std = torch.tensor(spec.std, dtype=f32, device=dev)
-    imgs = (imgs / 255.0 - mean) / std
 
-    return {'image': imgs, 'joints_input': batched_apply_affine(joints_f, fwd),
+    return {'image': normalize(imgs, spec), 'joints_input': batched_apply_affine(joints_f, fwd),
             'vis': vis_f, 'center': centers_f, 'scale': scales_a, 'rotation': rots}
 
 
@@ -157,3 +165,20 @@ def augment_batch(batch, draws, spec: PipelineSpec, train: bool) -> dict:
         data['joints_input'], data.pop('vis'), heatmap_size=(spec.out_res, spec.out_res),
         image_size=(R, R), sigma=spec.sigma)
     return dict(data, target=target, target_weight=tw)
+
+
+def prepare_host_batch(batch, spec: PipelineSpec) -> dict:
+    """Host crops -> normalised inputs, targets and weights, on the batch's
+    device: the device tail of the host pipeline (`PoseDataset.host_batch`
+    did the draws and the warp).
+
+    batch: image [B, R, R, 3] BGR 0-255 (uint8, or the same values in f32),
+    joints [B, J, 2] in crop pixels, vis [B, J], as tensors.
+    Returns image [B, R, R, 3] f32 normalised, target [B, h, w, J] f32 and
+    target_weight [B, J] (the render kernel on the card)."""
+    f32 = torch.float32
+    R = spec.inp_res
+    target, tw = render_gaussian_targets(
+        batch['joints'].to(f32), batch['vis'].to(f32),
+        heatmap_size=(spec.out_res, spec.out_res), image_size=(R, R), sigma=spec.sigma)
+    return {'image': normalize(batch['image'], spec), 'target': target, 'target_weight': tw}

@@ -8,6 +8,12 @@ OKS recall). On the card each forward runs the fused bottleneck,
 upsample+add and pool kernels, the eval step the render kernel and the
 quarter decode the decode kernel. Numbers stay on the device until one
 host fetch at the end of a pass.
+
+`DATASET.device_pipeline` picks the input pipeline, as in the Trainer:
+canvases cropped on the device, or the host pipeline's cv2 crops
+(`host_batch` with `RandomState(0)`, which validation draws nothing from),
+normalised on the device, with the targets rendered by `prepare_host_batch`
+for the loss and the center and scale taken from the batch for the decode.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import torch
 from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.config import Config
 from hourglass_pose_estimation_torch.data import (
-    Loader, crop_batch, get_dataset, make_spec, sample_augmentations, to_device)
+    Loader, crop_batch, get_dataset, make_spec, normalize, prepare_host_batch,
+    sample_augmentations, to_device)
 from hourglass_pose_estimation_torch.data.mpii import evaluate_pckh, save_pred_mat
 from hourglass_pose_estimation_torch.data.oks import (
     COCO_SIGMAS, CROWDPOSE_SIGMAS, coco_eval_ap, instance_areas_from_scales, oks_recall,
@@ -45,10 +52,6 @@ class Evaluator:
     device='cpu' is asked for)."""
 
     def __init__(self, cfg: Config, verbose: bool = True, device='cuda'):
-        if not cfg.dataset.device_pipeline:
-            raise NotImplementedError(
-                'DATASET.device_pipeline=False (the host cv2 pipeline) is not ported '
-                'yet (ROADMAP Queue 1 item 9)')
         self.device = resolve_device(device)
         self.cfg = cfg
         self.verbose = verbose
@@ -63,23 +66,37 @@ class Evaluator:
                              seed=cfg.common.seed, drop_last=False)
         self.canvas = dc.canvas or max(dc.inp_res, 64)
         self.crop_aware = dc.canvas_mode == 'crop'
+        self.device_pipeline = dc.device_pipeline
         self.eval_step = make_eval_step(self.spec, subset=cfg.model.subset,
-                                        pck_thr=cfg.common.pck, device_pipeline=True)
+                                        pck_thr=cfg.common.pck,
+                                        device_pipeline=self.device_pipeline)
         base = decode_dark if cfg.eval.decode == 'dark' else decode_quarter_offset
         # dataset-official metrics use the corrected 0-based decode (the
         # reference's 1-based space is kept only for its heatmap PCK)
         self._decode = functools.partial(base, zero_based=True)
 
     def _batch(self, idx) -> dict:
-        raw = self.ds.canvas_batch(idx, canvas=self.canvas, crop_aware=self.crop_aware)
+        """One val batch on the device: canvases, or the host crops with
+        their geometry."""
+        if self.device_pipeline:
+            raw = self.ds.canvas_batch(idx, canvas=self.canvas, crop_aware=self.crop_aware)
+        else:
+            crops = self.ds.host_batch(idx, np.random.RandomState(0), train=False)
+            raw = {k: crops[k] for k in ('image', 'joints', 'vis', 'center', 'scale')}
         return to_device(raw, self.device)
+
+    def _stage(self, idx) -> dict:
+        """One val batch as the eval step takes it (the host pipeline's
+        targets rendered here)."""
+        data = self._batch(idx)
+        return data if self.device_pipeline else prepare_host_batch(data, self.spec)
 
     def evaluate(self, state: TrainState) -> Tuple[float, float]:
         """Averaged (val loss, heatmap PCK), the reference's metric: each
         batch weighted by its valid samples; one host fetch at the end."""
         rows = []
         for idx, valid in self.loader.epoch_indices():
-            m = self.eval_step(state, self._batch(idx), valid)
+            m = self.eval_step(state, self._stage(idx), valid)
             rows.append(torch.stack([m['loss'], m['acc'], m['n']]))
         vals = torch.stack(rows).cpu().numpy()
         n = vals[:, 2]
@@ -113,10 +130,13 @@ class Evaluator:
         averaged when asked, and the crops' centers [B, 2] and scales
         [B, 2]), on the device."""
         data = self._batch(idx)
-        draws = sample_augmentations(None, data['scale'], scale_factor=self.spec.scale_factor,
-                                     rot_factor=self.spec.rot_factor, train=False)
-        data = crop_batch(data, draws, self.spec, False)
-        image = data['image']
+        if self.device_pipeline:
+            draws = sample_augmentations(None, data['scale'], scale_factor=self.spec.scale_factor,
+                                         rot_factor=self.spec.rot_factor, train=False)
+            data = crop_batch(data, draws, self.spec, False)
+            image = data['image']
+        else:
+            image = normalize(data['image'], self.spec)
         hms = state.model(image, train=False)[-1]
         if flip_test:
             hf = state.model(torch.flip(image, dims=[2]), train=False)[-1]

@@ -10,18 +10,26 @@ fast-forwarded, and the frozen-BN phase from `TRAIN.freeze_bn_after_epoch`
 its autograd Function in its backward). Validation runs the fused
 bottleneck under `MODEL.fuse_block` too.
 
+Two input pipelines, as `DATASET.device_pipeline` picks: the device one
+(the host packs uint8 canvases, `canvas_batch`; the draws, the warp and the
+render run in the step) and the host one (`host_batch`: the reference's
+draws from a `np.random.RandomState` seeded (COMMON.seed * 1000003 + epoch)
+mod 2^31 for each train epoch and 0 for validation, and cv2's warp; the
+uint8 crops are normalised and their targets rendered on the card by
+`prepare_host_batch`, on the step's stream, before the step).
+
 Host and card overlap: a producer thread (`data.Prefetcher`) packs each
-batch's canvases, pins them and copies them to the card on a side CUDA
-stream; the step's stream waits for that copy (an event recorded after
-it) and the batch's tensors are marked as used on the step's stream
-(`record_stream`), so the allocator does not hand their memory to the next
-copy while the step still reads it. Step metrics stay on the card until
+batch (reading and decoding image files there too), pins it and copies it
+to the card on a side CUDA stream; the step's stream waits for that copy
+(an event recorded after it) and the batch's tensors are marked as used on
+the step's stream (`record_stream`), so the allocator does not hand their
+memory to the next copy while the step still reads it. Step metrics stay on the card until
 the epoch ends: one host fetch per epoch.
 
 The JAX package's documented deviations hold here too: `TRAIN.epochs`
 epochs (not epochs + 1). Several devices (data, tensor or pipeline
-parallelism, explicit collectives) and the host cv2 pipeline are refused
-with the ROADMAP item that brings them.
+parallelism, explicit collectives) are refused with the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ import torch
 from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.config import Config
 from hourglass_pose_estimation_torch.data import (
-    Loader, Prefetcher, get_dataset, make_spec, resolve_num_classes, to_device)
+    Loader, Prefetcher, get_dataset, make_spec, prepare_host_batch, resolve_num_classes,
+    to_device)
 from hourglass_pose_estimation_torch.models import model_from_config
 from hourglass_pose_estimation_torch.runner import checkpoint as ckpt_lib
 from hourglass_pose_estimation_torch.runner.train_state import (
@@ -56,10 +65,6 @@ def refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             f"{', '.join(multi)}: training on several devices is not ported yet "
             '(ROADMAP Queue 1 item 13); the port trains on one card')
-    if not cfg.dataset.device_pipeline:
-        raise NotImplementedError(
-            'DATASET.device_pipeline=False (the host cv2 pipeline) is not ported '
-            'yet (ROADMAP Queue 1 item 9)')
 
 
 class Trainer:
@@ -118,16 +123,17 @@ class Trainer:
 
         self.canvas = dc.canvas or max(dc.inp_res, 64)
         self.crop_aware = dc.canvas_mode == 'crop'
+        self.device_pipeline = dc.device_pipeline
         self.train_step = make_train_step(
             self.spec, subset=mc.subset, pck_thr=cfg.common.pck,
-            device_pipeline=True)
+            device_pipeline=self.device_pipeline)
         # late-training frozen BN: a second step whose forward uses the
         # running averages, built when first reached
         self.freeze_bn_after = tc.freeze_bn_after_epoch
         self._frozen_step = None
         self.eval_step = make_eval_step(
             self.spec, subset=mc.subset, pck_thr=cfg.common.pck,
-            device_pipeline=True)
+            device_pipeline=self.device_pipeline)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == 'cuda' else None)
 
@@ -191,11 +197,30 @@ class Trainer:
                 t.record_stream(compute)
         return dev
 
-    def _make_produce(self, ds, with_valid: bool = False):
-        """Host batch producer, shared by _train_epoch and _evaluate."""
+    def _prepare(self, batch: dict) -> dict:
+        """A staged host-pipeline batch -> the step's inputs (normalised
+        image, targets and weights, rendered on the current stream); a
+        device-pipeline batch goes to the step as it is."""
+        if self.device_pipeline:
+            return batch
+        return prepare_host_batch(batch, self.spec)
+
+    def _make_produce(self, ds, train: bool, epoch: int = 0, with_valid: bool = False):
+        """Host batch producer, shared by _train_epoch and _evaluate: the
+        canvases of the device pipeline, or the host pipeline's crops drawn
+        from the JAX Trainer's RandomState seeds (validation draws
+        nothing)."""
+        if not self.device_pipeline:
+            seed = (self.cfg.common.seed * 1000003 + epoch) % (2 ** 31) if train else 0
+            host_rng = np.random.RandomState(seed)
+
         def produce(item):
             idx, valid = item
-            raw = ds.canvas_batch(idx, canvas=self.canvas, crop_aware=self.crop_aware)
+            if self.device_pipeline:
+                raw = ds.canvas_batch(idx, canvas=self.canvas, crop_aware=self.crop_aware)
+            else:
+                crops = ds.host_batch(idx, host_rng, train=train)
+                raw = {k: crops[k] for k in ('image', 'joints', 'vis')}
             if with_valid:
                 raw['valid'] = valid
             return self._stage(raw)
@@ -209,7 +234,7 @@ class Trainer:
             if self._frozen_step is None:
                 self._frozen_step = make_train_step(
                     self.spec, subset=self.cfg.model.subset,
-                    pck_thr=self.cfg.common.pck, device_pipeline=True,
+                    pck_thr=self.cfg.common.pck, device_pipeline=self.device_pipeline,
                     freeze_bn=True)
                 self._log(f'=> BatchNorm frozen (running averages) from '
                           f'epoch {epoch + 1} on')
@@ -219,10 +244,11 @@ class Trainer:
         n_img = 0
         step_metrics = []
         total = len(batches)
-        prefetch = Prefetcher(batches, self._make_produce(self.train_ds))
+        prefetch = Prefetcher(batches, self._make_produce(self.train_ds, True, epoch))
         try:
             for i, (staged, (idx, _valid)) in enumerate(prefetch, 1):
-                self.state, metrics = step_fn(self.state, self._take(staged), rng)
+                batch = self._prepare(self._take(staged))
+                self.state, metrics = step_fn(self.state, batch, rng)
                 step_metrics.append(torch.stack([metrics['loss'], metrics['acc']]))
                 n_img += len(idx)
                 if total >= 50 and i % 50 == 0:
@@ -245,13 +271,13 @@ class Trainer:
         """Validation over the whole split -> (loss, PCK), each batch
         weighted by its valid samples (padded ones masked out)."""
         prefetch = Prefetcher(self.val_loader.epoch_indices(),
-                              self._make_produce(self.val_ds, with_valid=True))
+                              self._make_produce(self.val_ds, False, with_valid=True))
         rows = []
         try:
             for staged, _ in prefetch:
                 batch = self._take(staged)
                 valid = batch.pop('valid')
-                m = self.eval_step(self.state, batch, valid)
+                m = self.eval_step(self.state, self._prepare(batch), valid)
                 rows.append(torch.stack([m['loss'], m['acc'], m['n']]))
         finally:
             prefetch.close()

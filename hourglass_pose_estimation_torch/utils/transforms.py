@@ -1,19 +1,86 @@
-"""Batched person-crop affine geometry on device (the port's copy of the
-device half of `hourglass_pose_estimation_tpu/utils/transforms.py`).
+"""Person-crop affine geometry (the port's copy of
+`hourglass_pose_estimation_tpu/utils/transforms.py`).
 
 A person is a `center` (pixels) and a `scale` (person size / 200 px);
 the network input is the similarity warp of that box onto an
-`output_size` canvas. The transform is built in closed form,
-L = (W/w) R(-rot), t = dst_c - L src_c, as f32 tensor math.
+`output_size` canvas, L = (W/w) R(-rot), t = dst_c - L src_c. Two halves:
+
+  * host, numpy in float64 (`get_affine_transform`, `affine_transform`,
+    `transform_preds`, `fliplr_joints`): one transform at a time, for the
+    cv2 host pipeline and dataset bookkeeping;
+  * device, batched f32 tensor math (`batched_affine_transforms`,
+    `batched_apply_affine`): the device pipeline's crop affines.
+
+The reference builds its affine from three point pairs
+(`cv2.getAffineTransform`); both pairs' third points follow the same 90
+degree rule, so that map is this similarity exactly.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 PIXEL_STD = 200.0
+
+
+def _rot_mat(rot_deg: float) -> np.ndarray:
+    r = np.pi * rot_deg / 180.0
+    cs, sn = np.cos(r), np.sin(r)
+    return np.array([[cs, -sn], [sn, cs]], dtype=np.float64)
+
+
+def get_affine_transform(center, scale, rot, output_size,
+                         shift=(0.0, 0.0), inv=False) -> np.ndarray:
+    """2x3 float64 affine mapping the person box onto `output_size` (w, h);
+    center (2,) source pixels, scale a scalar or (2,) in units of 200 px,
+    rot degrees (counter-clockwise in image coordinates), shift a fraction
+    of the box; inv=True gives the dst -> src map."""
+    scale = np.asarray(scale, dtype=np.float64).reshape(-1)
+    if scale.size == 1:
+        scale = np.array([scale[0], scale[0]])
+    center = np.asarray(center, dtype=np.float64)
+    shift = np.asarray(shift, dtype=np.float64)
+
+    src_w = scale[0] * PIXEL_STD
+    dst_w, dst_h = float(output_size[0]), float(output_size[1])
+    L = (dst_w / src_w) * _rot_mat(-rot)
+    src_c = center + scale * PIXEL_STD * shift
+    dst_c = np.array([dst_w * 0.5, dst_h * 0.5])
+    if inv:
+        Li = np.linalg.inv(L)
+        t = src_c - Li @ dst_c
+        return np.concatenate([Li, t[:, None]], axis=1)
+    t = dst_c - L @ src_c
+    return np.concatenate([L, t[:, None]], axis=1)
+
+
+def affine_transform(pt, trans) -> np.ndarray:
+    """Apply a 2x3 affine to one (x, y) point."""
+    pt = np.asarray(pt, dtype=np.float64)
+    return trans[:, :2] @ pt[:2] + trans[:, 2]
+
+
+def transform_preds(coords, center, scale, output_size) -> np.ndarray:
+    """Heatmap-space coords [..., 2] -> source-image pixels."""
+    trans = get_affine_transform(center, scale, 0, output_size, inv=True)
+    coords = np.asarray(coords, dtype=np.float64)
+    return coords @ trans[:, :2].T + trans[:, 2]
+
+
+def fliplr_joints(joints, joints_vis, width, matched_parts):
+    """Mirror joints [J, >=2] in an image `width` wide and swap the
+    left/right pairs (with their visibilities); as the reference, the
+    coordinates of invisible joints come out zeroed (joints * joints_vis)."""
+    joints = np.array(joints, dtype=np.float64, copy=True)
+    joints_vis = np.array(joints_vis, copy=True)
+    joints[:, 0] = width - joints[:, 0] - 1
+    for a, b in matched_parts:
+        joints[[a, b]] = joints[[b, a]]
+        joints_vis[[a, b]] = joints_vis[[b, a]]
+    return joints * joints_vis, joints_vis
 
 
 def _apply_linear(L: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -536,3 +536,52 @@ def test_mspn_on_the_card_matches_the_cpu(dev):
         F.max_pool2d(xt, 3, 2, 1).backward(g.to(d, torch.bfloat16))
         grads.append(xt.grad.cpu())
     assert torch.equal(grads[0], grads[1])
+
+
+def test_file_canvases_on_this_machine_match_the_numpy_warp(dev, tmp_path, monkeypatch):
+    """The crop canvases of JPEG files through this machine's cv2
+    (warpAffine; the native loader forced off) against the port's numpy
+    `warp_region` on the same decoded pixels: within 1 level (the rounding
+    of the taps' weights differs), on at most 1e-4 of the values."""
+    import cv2
+    from hourglass_pose_estimation_torch.data import fabricate, get_dataset, native
+    from hourglass_pose_estimation_torch.data.common import warp_region
+    monkeypatch.setattr(native, 'load_region_batch', lambda *a, **k: None)
+    img, ann, _ = fabricate.mpii_tree(str(tmp_path), np.random.RandomState(0), n_train=2,
+                                      n_valid=4, image_size=(640, 360), scales=(0.6, 1.2),
+                                      n_small=2)
+    ds = get_dataset('mpii', False, image_path=img, annotation_path=ann, inp_res=256, out_res=64)
+    idx = [0, 1, 2, 3]
+    got = ds.canvas_batch(idx, canvas=256, crop_aware=True)
+    assert ds.slot_paths == {'native': 0, 'cv2': 4, 'memory': 0}
+    sides = ds._region_sides(idx)
+    for k, i in enumerate(idx):
+        src = cv2.imread(ds.records.image_paths[i], cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION)
+        ox, oy = got['canvas_offset'][k]
+        ref = warp_region(src, float(got['canvas_scale'][k]), ox, oy, 256)
+        diff = np.abs(got['canvas'][k].astype(int) - ref)
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-4, (k, diff.max(), (diff > 0).mean())
+        assert got['width'][k] == src.shape[1]
+    assert float(got['canvas_scale'][0]) == 1.0 and float(sides[0]) < 256
+
+
+def test_prepare_host_batch_on_the_card_matches_the_cpu(dev):
+    """Host crops normalised and rendered on the card (the render kernel,
+    one launch) against the CPU: the image within 1e-6 (PyTorch's CUDA
+    division by a scalar multiplies by its reciprocal, the CPU divides: 1
+    ulp apart before the division by std), the targets within 1e-6 (expf
+    against exp) and the weights equal."""
+    from hourglass_pose_estimation_torch.data import prepare_host_batch
+    gen = torch.Generator().manual_seed(0)
+    batch = {'image': torch.randint(0, 256, (8, 256, 256, 3), generator=gen, dtype=torch.uint8),
+             'joints': torch.rand(8, 16, 2, generator=gen) * 300 - 20,
+             'vis': (torch.rand(8, 16, generator=gen) > 0.2).float()}
+    spec = make_spec(Synthetic(False, num_samples=1, inp_res=256, out_res=64))
+    before = render_gaussian.launches
+    got = prepare_host_batch({k: v.to(dev) for k, v in batch.items()}, spec)
+    assert render_gaussian.launches == before + 1
+    ref = prepare_host_batch(batch, spec)
+    assert render_gaussian.launches == before + 1
+    assert float((got['image'].cpu() - ref['image']).abs().max()) <= 1e-6
+    assert torch.equal(got['target_weight'].cpu(), ref['target_weight'])
+    assert float((got['target'].cpu() - ref['target']).abs().max()) <= 1e-6

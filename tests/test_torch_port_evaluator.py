@@ -186,10 +186,21 @@ def test_evaluate_official_oks_matches_jax(full, jax_predictions, tmp_path, monk
     assert tev.ds.scale_stored_expand == 1.0
 
 
-def test_evaluator_refuses_the_host_pipeline():
-    cfg = tconfig.load_config(raw=_raw(DATASET={'device_pipeline': False}))
-    with pytest.raises(NotImplementedError, match='item 9'):
-        Evaluator(cfg, device='cpu')
+def test_evaluator_on_host_crops_matches_jax(jstate16):
+    """DATASET.device_pipeline=false: the cv2 host crops, normalised on the
+    device, in `evaluate` (targets by prepare_host_batch) and in the
+    flip-test `predict_keypoints` (center and scale from the batch)."""
+    raw = _raw(DATASET={'device_pipeline': False})
+    jev = JaxEvaluator(jconfig.load_config(raw=raw), verbose=False)
+    tev = Evaluator(tconfig.load_config(raw=raw), verbose=False, device='cpu')
+    tstate = _port_state(jstate16, 16)
+    assert not tev.device_pipeline
+    loss, acc = tev.evaluate(tstate)
+    ref_loss, ref_acc = jev.evaluate(jstate16)
+    assert np.isfinite(loss) and abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    assert abs(acc - ref_acc) <= 1.0 / (N * 16)
+    got = tev.predict_keypoints(tstate)
+    _close_keypoints(got, np.asarray(jev.predict_keypoints(jstate16)))
 
 
 def test_evaluate_only_fails_fast_without_a_checkpoint(tmp_path, monkeypatch):

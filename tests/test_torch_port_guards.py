@@ -20,8 +20,14 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / 'hourglass_pose_estimation_torch'
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'hourglass_pose_estimation_tpu')
-# files that import no cv2 at all, not even where they run
-NO_CV2 = ('chip_smoke.py', 'interop.py', 'mspn.py', 'resize.py')
+# files that import no cv2 at all, not even where they run (chip_smoke.py
+# does: its host data phase decodes image files and requires cv2)
+NO_CV2 = ('interop.py', 'mspn.py', 'resize.py', 'coco_json.py', 'mpii.py', 'mscoco.py',
+          'native.py', 'pipeline.py')
+# the host data layer: the readers, the native loader's binding and the
+# host pipeline (cv2 is imported where an image file is read or warped)
+HOST_DATA = {f'hourglass_pose_estimation_torch.data.{m}' for m in (
+    'common', 'coco_json', 'fabricate', 'mpii', 'mscoco', 'native', 'pipeline')}
 
 # the reference torch model's counts (num_blocks=1, num_classes=16, sum)
 REFERENCE_COUNTS = {
@@ -50,9 +56,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
 
 
 def test_importing_the_port_loads_no_cv2():
-    """The card machine has no cv2: importing every module of the port,
-    `interop` and the MSPN model included, must not load it (the host
-    preprocess and the `estimate` CLI import it where they run)."""
+    """Importing every module of the port, `interop`, the MSPN model and the
+    host data layer included, must not load cv2 (the host preprocess, the
+    `estimate` CLI and the readers' image files import it where they run;
+    a machine may lack it)."""
     code = (
         'import importlib, sys\n'
         f'for m in {_port_modules()!r}:\n'
@@ -63,12 +70,13 @@ def test_importing_the_port_loads_no_cv2():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert {'hourglass_pose_estimation_torch.interop',
-            'hourglass_pose_estimation_torch.models.mspn'} <= set(_port_modules())
+            'hourglass_pose_estimation_torch.models.mspn'} | HOST_DATA <= set(_port_modules())
 
 
 def test_port_sources_import_no_jax():
     files = list(PKG.rglob('*.py')) + [REPO / 'chip_smoke.py']
     assert len(files) > 15
+    assert {m.rsplit('.', 1)[-1] + '.py' for m in HOST_DATA} <= {f.name for f in files}
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):

@@ -100,8 +100,11 @@ def test_synthetic_canvas_batch_equals_jax():
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
         assert a[k].dtype == b[k].dtype, k
     assert make_spec(ours) == tuple(jax_make_spec(ref))
-    with pytest.raises(NotImplementedError, match='resize'):
-        ours.canvas_batch(idx, canvas=96)
+    # q = 96/64: the whole image through cv2's resize, as in the JAX package
+    a, b = ours.canvas_batch(idx, canvas=96), ref.canvas_batch(idx, canvas=96)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert float(a['canvas_scale'][0]) == 1.5
 
 
 @pytest.mark.parametrize('train', [True, False])

@@ -258,8 +258,12 @@ def test_bf16_trainer_with_fused_blocks_matches_jax_trainer(tmp_path, monkeypatc
     _trainer_matches_jax(tmp_path, monkeypatch, 'bf16')
 
 
-def _trainer_matches_jax(tmp_path, monkeypatch, precision):
-    prec = {'TRAIN': {'precision': precision}}
+def _trainer_matches_jax(tmp_path, monkeypatch, precision, **over):
+    """The port's Trainer against the JAX Trainer on `_raw_cfg` with
+    TRAIN.precision and the sections of `over` merged in: the same initial
+    weights, and under the device pipeline the JAX draws (the host pipeline
+    draws from the same RandomState seeds in both)."""
+    prec = {**over, 'TRAIN': {'precision': precision, **over.get('TRAIN', {})}}
     raw = _raw_cfg(tmp_path / 'jax', **prec)
     jt = JaxTrainer(jconfig.load_config(raw=raw), verbose=False)
     jlog, jweights = [], []
@@ -271,7 +275,8 @@ def _trainer_matches_jax(tmp_path, monkeypatch, precision):
     first = jt._init_state()
     init = jax.device_get({'params': first.params, 'batch_stats': first.batch_stats})
     load_jax_variables(t.model, jax.tree.map(np.asarray, init))
-    _jax_draws(monkeypatch, 0, 2, t.steps_per_epoch)
+    if t.device_pipeline:
+        _jax_draws(monkeypatch, 0, 2, t.steps_per_epoch)
     calls = fused_bottleneck.backward_calls
     assert t.train() == jt.best_acc
 
@@ -334,9 +339,29 @@ def test_cli_trains_on_the_cpu_when_asked(tmp_path, capsys):
 
 @pytest.mark.parametrize('override,item', [
     ('TRAIN.pipeline_parallel=2', 'item 13'), ('TRAIN.explicit_collectives=true', 'item 13'),
-    ('TRAIN.model_parallel=2', 'item 13'), ('TRAIN.data_parallel=2', 'item 13'),
-    ('DATASET.device_pipeline=false', 'item 9'), ('DATASET.name=mpii', 'item 9')])
+    ('TRAIN.model_parallel=2', 'item 13'), ('TRAIN.data_parallel=2', 'item 13')])
 def test_trainer_refuses_what_one_card_lacks(tmp_path, override, item):
     cfg = tconfig.load_config(raw=_raw_cfg(tmp_path), overrides=[override])
     with pytest.raises(NotImplementedError, match=item):
         Trainer(cfg, verbose=False, device='cpu')
+
+
+@pytest.mark.parametrize('override', ['DATASET.device_pipeline=false', 'DATASET.name=mpii'])
+def test_trainer_runs_the_host_pipeline_and_the_readers(tmp_path, override):
+    """The host cv2 pipeline (synthetic, in memory) and an MPII tree of JPEG
+    files (the device pipeline) each train an epoch and validate."""
+    from hourglass_pose_estimation_torch.data import fabricate
+    img, ann, _ = fabricate.mpii_tree(str(tmp_path / 'mpii'), np.random.RandomState(0),
+                                      n_train=4, n_valid=3, image_size=(160, 120),
+                                      scales=(0.3, 0.5))
+    cfg = tconfig.load_config(raw=_raw_cfg(tmp_path), overrides=[
+        override, 'DATASET.inp_res=64', 'DATASET.out_res=16', 'TRAIN.epochs=1',
+        'TRAIN.freeze_bn_after_epoch=0', f'DATASET.image_path={img}',
+        f'DATASET.annotation_path={ann}'])
+    t = Trainer(cfg, verbose=False, device='cpu')
+    host = override == 'DATASET.device_pipeline=false'
+    assert (t.device_pipeline, t.train_ds.name) == ((False, 'synthetic') if host else (True, 'mpii'))
+    t.train()
+    h = t.history[0]
+    assert h['epoch'] == 1 and all(np.isfinite(v) for v in h.values())
+    assert (tmp_path / 'ckpts' / 'checkpoint_1').is_file()
