@@ -122,9 +122,25 @@ failure):
      whole-image canvases (q = 0.2), and on configs/train_coco_8stack.yaml
      the trainer (1 epoch of 2 steps) and `evaluate_only` with the DARK
      decode (a results file row per valid person, a finite OKS table);
- 16. the `kernels` JSON line (launches summed over the main paths of
-     phases 4, 6-11, 12-14 and 15; the pool backward that splits ties is
-     on none of them), then the result line.
+ 16. export and the serving tools on the trainer phase's checkpoint_3: the
+     export CLI (`python -m hourglass_pose_estimation_torch.export`) writes
+     the flagship serving function as a `torch.export` program (batch 64,
+     uint8 256x256 frames, quarter decode, folded BN, bf16 weights), whose
+     graph keeps every kernel as an `hpe::` op; loaded in a fresh process
+     and in this one (`load_serving_artifact`), each held bit-equal to
+     make_inference_fn on the same seeded frames with exact launches per
+     call (65 bottleneck, 32 upsample, 33 pool, 1 decode); served over HTTP
+     as phase 4 serves (every reply equal to the direct call's); a batch-1
+     program for batch-1 latency, and serving_demo's sync, async and
+     sustained modes through it on seeded JPEGs; profile_step and step_cost
+     once; export and load seconds, size, batch-64 and batch-1 p50 beside
+     the in-process function's, served img/s;
+ 17. MSPN at full width through the export CLI on the MSPN trainer's
+     checkpoint_2, loaded and held bit-equal to make_inference_fn (1 decode
+     launch a call, no other);
+ 18. the `kernels` JSON line (launches summed over the main paths of
+     phases 4, 6-11, 12-14, 15, 16 and 17; the pool backward that splits
+     ties is on none of them), then the result line.
 --profile adds torch.profiler breakdowns (by kernel, by launching
 PyTorch op, by kind) of one serving batch and of one train step, each for
 the hourglass and for MSPN, and the serving front end's rate alone.
@@ -266,6 +282,12 @@ MSPN_TRAINER = ['DATASET.name=synthetic', 'DATASET.num_samples=128', 'TRAIN.epoc
 # CPU for two frames
 TOL_MSPN_FOLD = 3e-2
 TOL_MSPN_F32_REFERENCE = 5e-2
+# the export phase: the flagship serving function as the export CLI writes
+# it (batch 64, uint8 frames, quarter decode, folded BN, bf16 weights), and
+# serving_demo's modes on DEMO_JPEGS seeded JPEGs of DEMO_FRAME pixels
+EXPORT_OVERRIDES = ['EVAL.export_keypoints=true', 'EVAL.export_preprocess=true',
+                    f'EVAL.export_batch={BATCH}', 'EVAL.export_bf16_weights=true']
+DEMO_JPEGS, DEMO_FRAME = 3, (480, 640)
 TRAINER_OVERRIDES = ['DATASET.name=synthetic', 'DATASET.num_samples=128',
                      'TRAIN.epochs=3', 'TRAIN.steps_per_epoch=4',
                      f'TRAIN.freeze_bn_after_epoch={FREEZE_BN_AFTER}', 'COMMON.snapshot=1',
@@ -2180,6 +2202,255 @@ def mspn_interop_phase(ckpt: str, tmp: str, seed: int) -> dict:
     return out
 
 
+def p50_ms(fn, x, runs: int = 10, warmup: int = 3) -> float:
+    """Median wall time of fn(x) ending in a synchronize, in ms."""
+    import torch
+    ts = []
+    for i in range(warmup + runs):
+        t0 = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return sorted(ts[warmup:])[runs // 2] * 1e3
+
+
+def same_bits(got, ref) -> bool:
+    import torch
+    return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def export_config(*overrides):
+    """The flagship config with the export phase's EVAL keys and `overrides`."""
+    from hourglass_pose_estimation_torch.config import load_config
+    return load_config(str(REPO / 'configs' / 'train_mpii_8stack.yaml'),
+                       overrides=EXPORT_OVERRIDES + list(overrides))
+
+
+def checkpoint_function(cfg, ckpt: str):
+    """(model, its state from `ckpt`, the graph options) of a config, as the
+    export CLI reads them."""
+    import torch
+    from hourglass_pose_estimation_torch.data import get_meanstd, resolve_num_classes
+    from hourglass_pose_estimation_torch.models import model_from_config
+    from hourglass_pose_estimation_torch.runner.checkpoint import restore_params
+    model = model_from_config(cfg.model, num_classes=resolve_num_classes(cfg),
+                              out_res=cfg.dataset.out_res)
+    return model, restore_params(ckpt, 'cuda'), dict(
+        decode=cfg.eval.decode, fold_bn=cfg.eval.export_fold_bn,
+        weights_dtype=torch.bfloat16, preprocess=get_meanstd(cfg.dataset.name),
+        input_res=cfg.dataset.inp_res)
+
+
+def reference_fn(cfg, ckpt: str):
+    """make_inference_fn of a config's export options on a checkpoint: the
+    in-process function the exported program is held to."""
+    from hourglass_pose_estimation_torch.export import make_inference_fn
+    model, state, kw = checkpoint_function(cfg, ckpt)
+    return make_inference_fn(model, state, **kw)
+
+
+def run_export_cli(cfg_overrides, out_dir: Path):
+    """The export CLI on the flagship config -> (program path, seconds)."""
+    from hourglass_pose_estimation_torch.export.__main__ import main as export_main
+    t0 = time.perf_counter()
+    check(export_main([str(REPO / 'configs' / 'train_mpii_8stack.yaml'), *EXPORT_OVERRIDES,
+                       *cfg_overrides, f'COMMON.checkpoint_dir={out_dir}']) == 0,
+          'export CLI failed')
+    path = out_dir / 'export' / 'model.pt2'
+    check(path.is_file(), f'export CLI wrote no {path}')
+    return path, time.perf_counter() - t0
+
+
+def artifact_child(path: str, frames_path: str, out_path: str) -> None:
+    """In a fresh process: load the program (`load_serving_artifact`), run
+    it once on the saved frames after a warm-up, and save its outputs;
+    prints one JSON line: load seconds and the run's launches."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(REPO))
+    from hourglass_pose_estimation_torch.serving import load_serving_artifact
+    t0 = time.perf_counter()
+    fn, batch, shape, dtype = load_serving_artifact(path)
+    load_s = time.perf_counter() - t0
+    frames = np.load(frames_path)
+    fn(frames)
+    torch.cuda.synchronize()
+    zero_counts()
+    kps, maxv = fn(frames)
+    torch.cuda.synchronize()
+    np.savez(out_path, kps=kps.cpu().numpy(), maxv=maxv.cpu().numpy())
+    print(json.dumps(dict(load_s=load_s, batch=batch, shape=list(shape), dtype=str(dtype),
+                          launches=read_counts())), flush=True)
+
+
+def export_phase(tmp: str, ckpt: str, seed: int, paths: dict) -> dict:
+    """Export and the serving tools on the trainer phase's checkpoint_3: the
+    export CLI writes the flagship serving program (batch 64, uint8 256^2
+    frames, quarter decode, folded BN, bf16 weights); a fresh process and
+    this one load it (`load_serving_artifact`), each held bit-equal to
+    make_inference_fn on the same seeded frames with its launches per call
+    exact (65/32/33/1); served over HTTP (every reply equal to the direct
+    call's); a batch-1 program (`export_program`) for batch-1 latency and
+    serving_demo's sync, async and sustained modes on seeded JPEGs;
+    profile_step and step_cost once on the batch-64 program."""
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch import serving_demo
+    from hourglass_pose_estimation_torch.data import fabricate
+    from hourglass_pose_estimation_torch.export import export_program
+    from hourglass_pose_estimation_torch.serving import load_serving_artifact
+    from hourglass_pose_estimation_torch.utils.summary import profile_step, step_cost
+    out_dir = Path(tmp) / 'export_hg'
+    path, export_s = run_export_cli([f'COMMON.resume={ckpt}'], out_dir)
+    cfg = export_config(f'COMMON.resume={ckpt}')
+    ref_fn = reference_fn(cfg, ckpt)
+    frames = client_frames(seed + 21, BATCH)
+    ref = ref_fn(frames)
+
+    # a fresh process: nothing of the program was built there
+    np.save(out_dir / 'frames.npy', frames)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, '-c',
+                        f'import chip_smoke; chip_smoke.artifact_child({str(path)!r}, '
+                        f'{str(out_dir / "frames.npy")!r}, {str(out_dir / "child.npz")!r})'],
+                       cwd=REPO, capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    check(r.returncode == 0, f'export: the fresh process failed:\n{r.stdout[-3000:]}\n'
+          f'{r.stderr[-3000:]}')
+    child = json.loads(r.stdout.strip().splitlines()[-1])
+    got = np.load(out_dir / 'child.npz')
+    child_equal = bool(np.array_equal(got['kps'], ref[0].cpu().numpy())
+                       and np.array_equal(got['maxv'], ref[1].cpu().numpy()))
+    want = {fused_name(): 65, 'upsample2x_add': 32, 'maxpool2x2_fwd': 33, 'decode_peaks': 1}
+    expect_counts(child['launches'], 'export: the fresh process, one call', **want)
+    check(child['batch'] == BATCH and child['shape'] == [RES, RES, 3]
+          and child['dtype'] == 'uint8', f'export: the fresh process read {child}')
+    check(child_equal, 'export: the fresh process differs from make_inference_fn')
+
+    # this process
+    t0 = time.perf_counter()
+    fn, batch, shape, dtype = load_serving_artifact(str(path))
+    load_s = time.perf_counter() - t0
+    check(batch == BATCH and shape == (RES, RES, 3) and dtype == np.uint8,
+          f'export: load_serving_artifact read batch {batch}, frames {shape} {dtype}')
+    fn(frames)
+    torch.cuda.synchronize()
+    zero_counts()
+    got = fn(frames)
+    torch.cuda.synchronize()
+    paths['export'] = launches = read_counts()
+    expect_counts(launches, 'export: the program, one call', **want)
+    check(same_bits(got, ref), 'export: the program differs from make_inference_fn')
+
+    # served over HTTP: every reply is what the program's call on the batch
+    # that held its frame gave for that frame (a frame's row may depend on
+    # its place in the batch, which the batcher chooses)
+    rows = {}
+
+    def recorded(frames_in):
+        out = fn(frames_in)
+        k, m = (t.double().cpu() for t in out)
+        for i, f in enumerate(frames_in):
+            rows[f.tobytes()] = (k[i].tolist(), m[i].tolist())
+        return out
+
+    zero_counts()
+    replies, serve_s, stats, batcher = serve_load(recorded, seed + 22, N_REQUESTS)
+    paths['export_serve'] = served = read_counts()
+    nb = batcher.n_batches
+    expect_counts(served, f'export: serving the program, {nb} batches',
+                  **{k: v * nb for k, v in want.items()})
+    sent = np.concatenate([client_frames(seed + 23 + i, N_REQUESTS // CLIENT_PROCS)
+                           for i in range(CLIENT_PROCS)])
+    for i, rep in enumerate(replies):
+        check((rep['keypoints'], rep['scores']) == rows[sent[i].tobytes()],
+              f'export: reply {i} differs from the direct call')
+
+    # latency: the program against the in-process function, batch 64 and 1
+    path1 = str(out_dir / 'model_b1.pt2')
+    t0 = time.perf_counter()
+    model, state, kw = checkpoint_function(cfg, ckpt)
+    export_program(model, state, (1, RES, RES, 3), path1, **kw)
+    export1_s = time.perf_counter() - t0
+    fn1 = load_serving_artifact(path1)[0]
+    check(same_bits(fn1(frames[:1]), ref_fn(frames[:1])), 'export: the batch-1 program differs')
+    # in turns (program, function, function, program): the host's spread is
+    # as wide as the gap; each reading the mean of its two turns
+    lat = {}
+    for name, f, x in (('program_batch', fn, frames), ('fn_batch', ref_fn, frames),
+                       ('fn_batch', ref_fn, frames), ('program_batch', fn, frames),
+                       ('program_batch1', fn1, frames[:1]), ('fn_batch1', ref_fn, frames[:1]),
+                       ('fn_batch1', ref_fn, frames[:1]), ('program_batch1', fn1, frames[:1])):
+        lat.setdefault(name + '_ms_p50s', []).append(p50_ms(f, x))
+    lat.update({k[:-1]: sum(v) / len(v) for k, v in list(lat.items())})
+
+    # serving_demo on seeded JPEGs through the batch-1 program
+    import cv2
+    demo = Path(tmp) / 'demo'
+    demo.mkdir()
+    rng = np.random.RandomState(seed + 24)
+    for i in range(DEMO_JPEGS):
+        cv2.imwrite(str(demo / f'{i}.jpg'), fabricate.smooth_image(rng, *DEMO_FRAME))
+    common = ['--raw', '--res', str(RES), '--dataset', 'mpii']
+    t0 = time.perf_counter()
+    check(serving_demo.main(['sync', path1, str(demo / '0.jpg'), '--iters', '10',
+                             '--out', str(Path(tmp) / 'demo_sync.jpg'), *common]) == 0,
+          'serving_demo sync failed')
+    check(serving_demo.MODES['async'](serving_demo.parse_args(
+        ['async', path1, str(demo), str(Path(tmp) / 'demo_out'), *common]), fn1) == 0,
+        'serving_demo async failed')
+    check(serving_demo.MODES['sustained'](serving_demo.parse_args(
+        ['sustained', path1, str(demo / '1.jpg'), '--iters', '20', *common]), fn1) == 0,
+        'serving_demo sustained failed')
+    check(len(list((Path(tmp) / 'demo_out').iterdir())) == DEMO_JPEGS,
+          'serving_demo async: drawn frames missing')
+    demo_s = time.perf_counter() - t0
+
+    trace = profile_step(fn, frames, trace_dir=str(Path(tmp) / 'trace'))
+    cost = step_cost(fn, frames)
+    check((Path(trace) / 'trace.json').stat().st_size > 0 and cost['flops'] > 0,
+          f'export: profile_step / step_cost: {cost}')
+    out = dict(export_s=export_s, export_batch1_s=export1_s, load_s=load_s,
+               fresh_process_load_s=child['load_s'], fresh_process_s=child_s,
+               size_mb=path.stat().st_size / 1e6, served_images_per_s=N_REQUESTS / serve_s,
+               served_batches=nb, served_batch_ms_p50=stats['batch_latency_ms_p50'],
+               demo_s=demo_s, step_cost_gflops=cost['flops'] / 1e9, **lat)
+    print('export: ' + json.dumps(out), flush=True)
+    return out
+
+
+def mspn_export_phase(tmp: str, ckpt: str, seed: int, paths: dict) -> dict:
+    """The MSPN trainer's checkpoint_2 (2 stages, full width) through the
+    export CLI, loaded in this process and held bit-equal to
+    make_inference_fn on seeded frames, 1 decode launch a call and no other."""
+    import numpy as np
+    import torch
+    from hourglass_pose_estimation_torch.serving import load_serving_artifact
+    path, export_s = run_export_cli(MSPN_OVERRIDES + [f'COMMON.resume={ckpt}'],
+                                    Path(tmp) / 'export_mspn')
+    cfg = export_config(*MSPN_OVERRIDES, f'COMMON.resume={ckpt}')
+    frames = client_frames(seed + 25, BATCH)
+    ref = reference_fn(cfg, ckpt)(frames)
+    t0 = time.perf_counter()
+    fn, batch, shape, dtype = load_serving_artifact(str(path))
+    load_s = time.perf_counter() - t0
+    check(batch == BATCH and shape == (RES, RES, 3) and dtype == np.uint8,
+          f'mspn export: read batch {batch}, frames {shape} {dtype}')
+    fn(frames)
+    torch.cuda.synchronize()
+    zero_counts()
+    got = fn(frames)
+    torch.cuda.synchronize()
+    paths['mspn_export'] = launches = read_counts()
+    expect_counts(launches, 'mspn export: the program, one call', decode_peaks=1)
+    check(same_bits(got, ref), 'mspn export: the program differs from make_inference_fn')
+    ref_fn = reference_fn(cfg, ckpt)
+    out = dict(export_s=export_s, load_s=load_s, size_mb=path.stat().st_size / 1e6,
+               program_batch_ms_p50=p50_ms(fn, frames), fn_batch_ms_p50=p50_ms(ref_fn, frames))
+    print('mspn export: ' + json.dumps(out), flush=True)
+    return out
+
+
 def profile_block(fn, what: str, unprofiled_ms: float, top: int = 14) -> None:
     """torch.profiler over one call of fn: wall time, device busy time and
     idle share (against the profiled wall, and against `unprofiled_ms`, the
@@ -2411,6 +2682,9 @@ def main(argv=None) -> int:
         evaluation = evaluator_phase(tmp, trainer, paths)
         torch.cuda.empty_cache()
         estimation = estimator_phase(trainer['checkpoint'], args.seed, paths)
+        torch.cuda.empty_cache()
+        # 16. export and the serving tools on the same checkpoint
+        export = export_phase(tmp, trainer['checkpoint'], args.seed, paths)
     torch.cuda.empty_cache()
 
     # 12-14. MSPN at full width: the train step, the eval step, serving, the
@@ -2436,6 +2710,8 @@ def main(argv=None) -> int:
         mspn_estimation = mspn_estimator_phase(mspn_trainer['checkpoint'], args.seed, paths)
         torch.cuda.empty_cache()
         mspn_interop_phase(mspn_trainer['checkpoint'], tmp, args.seed)
+        torch.cuda.empty_cache()
+        mspn_export = mspn_export_phase(tmp, mspn_trainer['checkpoint'], args.seed, paths)
     torch.cuda.empty_cache()
 
     # 15. the host data layer: MPII and COCO trees of JPEG files through the
@@ -2443,7 +2719,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         host = host_data_phase(tmp, args.seed, paths, card)
 
-    # 16. the kernels, with their launches on the main paths
+    # 18. the kernels, with their launches on the main paths
     for r in rows:
         r['launches'] = sum(p[r['name']] for p in paths.values())
         r['launches_by_path'] = {k: p[r['name']] for k, p in paths.items()}
@@ -2475,6 +2751,16 @@ def main(argv=None) -> int:
           f"{host['epoch_train_s']:.2f} s (device pipeline), "
           f"{host['host_pipeline_producer_s']:.2f} s of {host['host_pipeline_epoch_train_s']:.2f} s "
           '(host pipeline)', flush=True)
+    print(f"card: {card}; export (hg, batch {BATCH}): {export['export_s']:.1f} s to export, "
+          f"{export['load_s']:.1f} s to load ({export['fresh_process_load_s']:.1f} s in a fresh "
+          f"process), {export['size_mb']:.1f} MB; batch-{BATCH} p50 "
+          f"{export['program_batch_ms_p50']:.2f} ms (in process "
+          f"{export['fn_batch_ms_p50']:.2f}), batch-1 p50 {export['program_batch1_ms_p50']:.2f} "
+          f"ms (in process {export['fn_batch1_ms_p50']:.2f}); served "
+          f"{export['served_images_per_s']:.1f} img/s; mspn {mspn_export['export_s']:.1f} s to "
+          f"export, {mspn_export['load_s']:.1f} s to load, {mspn_export['size_mb']:.1f} MB, "
+          f"batch-{BATCH} p50 {mspn_export['program_batch_ms_p50']:.2f} ms (in process "
+          f"{mspn_export['fn_batch_ms_p50']:.2f})", flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.time() - t_start:.1f} s', flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

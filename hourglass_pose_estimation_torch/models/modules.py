@@ -96,6 +96,7 @@ class Bottleneck(nn.Module):
         self.downsample = (Conv(in_ch, c_out, 1, stride, dtype=dtype)
                            if stride != 1 or in_ch != c_out else None)
         self._fold_cache = None
+        self.fold_frozen = False
 
     _FOLDED = ('bn1', 'bn2', 'bn3', 'conv1', 'conv2', 'conv3')
 
@@ -113,12 +114,31 @@ class Bottleneck(nn.Module):
              'batch_stats': {n: stats(getattr(self, n)) for n in names[:3]}},
             eps=self.bn1.eps, dtype=self.compute_dtype)
 
+    def freeze_fold(self) -> None:
+        """Make the fold once, now, and keep it as non-persistent buffers
+        (`fold_a1` ... `fold_c3`) that the fused forward reads as they are:
+        for an inference module whose weights no longer change
+        (`export.InferenceModule`), where it costs no call any fold work and
+        `torch.export` reads the folds as constants. A frozen block refuses
+        to train (a train-mode forward, or one that autograd records): its
+        fold would not follow the weights."""
+        with torch.no_grad():
+            fold = self.fused_params()
+        for name, t in fold._asdict().items():
+            # a copy: a leaf of the fold may be a view of a parameter
+            self.register_buffer(f'fold_{name}', t.detach().clone(), persistent=False)
+        self.fold_frozen = True
+
     def _folded(self) -> BottleneckParams:
-        """The fold for this forward. Where autograd records, it is made
-        from the live parameters each call (the frozen-BN train step
-        differentiates through it); otherwise it is cached and made again
-        when any source tensor was replaced or changed in place (an
-        optimizer step or a running-statistics update bumps its version)."""
+        """The fold for this forward: the frozen one (`freeze_fold`) where
+        there is one. Else, where autograd records, it is made from the
+        live parameters each call (the frozen-BN train step differentiates
+        through it); otherwise it is cached and made again when any source
+        tensor was replaced or changed in place (an optimizer step or a
+        running-statistics update bumps its version)."""
+        if self.fold_frozen:
+            return BottleneckParams(*(getattr(self, f'fold_{n}')
+                                      for n in BottleneckParams._fields))
         if torch.is_grad_enabled():
             return self.fused_params()
         srcs = [t for n in self._FOLDED
@@ -131,16 +151,24 @@ class Bottleneck(nn.Module):
                 self._fold_cache = (key, self.fused_params())
         return self._fold_cache[1]
 
-    def _fuses(self, x: torch.Tensor, train: bool) -> bool:
-        """The JAX package's gating, narrowed to the kernel's scope: bf16
-        compute and PLANES planes (an f32 or narrower block runs the
-        standard path on every device)."""
-        return (self.fuse_block and not train and self.stride == 1
+    def fusable(self) -> bool:
+        """The JAX package's gating, narrowed to the kernel's scope (bf16
+        compute and PLANES planes: an f32 or narrower block runs the
+        standard path on every device), less what depends on the forward:
+        an identity-residual, stride-1, non-mobile block with
+        `fuse_block` on."""
+        return (self.fuse_block and self.stride == 1 and self.downsample is None
                 and self.compute_dtype == torch.bfloat16 and self.planes == PLANES
-                and x.shape[1] == self.planes * EXPANSION and not self.mobile
+                and not self.mobile)
+
+    def _fuses(self, x: torch.Tensor, train: bool) -> bool:
+        return (not train and self.fusable()
                 and min(x.shape[2], x.shape[3]) >= self.fuse_min_hw)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.fold_frozen and (train or torch.is_grad_enabled()):
+            raise RuntimeError('Bottleneck: its fold is frozen for inference '
+                               '(freeze_fold); trained, it would read a stale fold')
         if self._fuses(x, train):
             y = fused_bottleneck(x.to(self.compute_dtype).permute(0, 2, 3, 1),
                                  self._folded())

@@ -4,7 +4,14 @@ CUDA tensors it launches its kernel or raises. `upsample2x_add`,
 `maxpool2x2` and `fused_bottleneck` are differentiable (autograd
 Functions over the forward and backward wrappers); `fused_bottleneck` runs
 one of two kernels, `fused_bottleneck_image` or `fused_bottleneck_chunked`
-(`bottleneck.DEFAULT_IMPL` unless the call names one)."""
+(`bottleneck.DEFAULT_IMPL` unless the call names one).
+
+Every kernel is a `torch.library` op in the `hpe` namespace (the launch
+functions of KERNEL_WRAPPERS, by the same names), registered when this
+package is imported: a CPU kernel (the plain version), a CUDA kernel (the
+launch) and a fake for shapes. So eager calls and `torch.export` take the
+same route, and an exported program keeps one `hpe::` node a launch; a
+process loads such a program only after importing this package."""
 
 from hourglass_pose_estimation_torch.ops.hopper.bottleneck import (
     BottleneckParams, bottleneck_backward_reference, bottleneck_reference,

@@ -147,6 +147,16 @@ def num_sms(t) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
+def on_meta(*ts) -> bool:
+    """Whether an op's fake was given meta tensors (shapes and strides that a
+    caller made, no data), on which it refuses what the CUDA kernel would.
+    A tensor that `torch.export` traces reports its own device instead, and
+    its checks wait for the launch, on the real tensor: the tracer's strides
+    are a guess (on an H100 it gave the model's channels-last convolutions
+    NCHW strides)."""
+    return any(t.device.type == 'meta' for t in ts)
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:

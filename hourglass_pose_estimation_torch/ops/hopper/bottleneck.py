@@ -12,7 +12,10 @@ recompute their halo (`fused_bottleneck_chunked`). Both run one Hopper
 core: a producer warpgroup streams the weights through a TMA ring in
 shared memory (multicast over the cluster in the image schedule), and two
 consumer warpgroups run `wgmma` with A from registers; the source's header
-says what bounds them and how the design answers that. The tile choosers
+says what bounds them and how the design answers that. Each schedule is a
+`torch.library` op (`hpe::fused_bottleneck_image`,
+`hpe::fused_bottleneck_chunked`), the one route to it in eager and under
+`torch.export` alike. The tile choosers
 (`rows_per_block`, `image_schedule`) size a block's row tile from the
 kernel's shared-memory budget (`hpe_bottleneck_smem_bytes`: the t2 window
 and the weight ring). `DEFAULT_IMPL` picks the schedule wherever the
@@ -230,14 +233,15 @@ def _kernel_args(x: torch.Tensor, params: BottleneckParams, out: torch.Tensor):
                                    p.w2, p.c2, p.a3, p.b3, p.w3, p.c3)]
 
 
-def fused_bottleneck_image(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
-    """Forward, impl 'image': the cluster kernel for a CUDA tensor (counted
-    in `fused_bottleneck_image.launches`), `bottleneck_reference` for a CPU
-    one. Raises ValueError where no cluster of at most MAX_CLUSTER blocks
-    holds the image, or none can be resident on the card."""
-    if x.device.type == 'cpu':
-        return bottleneck_reference(x, params)
-    _check_cuda(x, params)
+# The two schedules as `torch.library` ops, `hpe::fused_bottleneck_image`
+# and `hpe::fused_bottleneck_chunked`, taking x and the 12 folded tensors
+# in BottleneckParams order: the CPU kernel is `bottleneck_reference`, the
+# CUDA kernel the launch (schedule, checks, counted on the public
+# wrapper), and the fake gives the output's shape (and, given meta
+# tensors, refuses what the CUDA kernel would). `torch.export` keeps one
+# node a block, whose folded tensors it reads as constants.
+def _image_launch(x: torch.Tensor, p: BottleneckParams) -> torch.Tensor:
+    _check_cuda(x, p)
     B, H, W, C = x.shape
     out = torch.empty_like(x)
     if x.numel() == 0:
@@ -248,29 +252,63 @@ def fused_bottleneck_image(x: torch.Tensor, params: BottleneckParams) -> torch.T
                          f'blocks with {W}-pixel rows fits on this card; use '
                          "impl='chunked'")
     err = _build.library().hpe_bottleneck_image_fwd(
-        *_kernel_args(x, params, out), B, H, W, C, PLANES, tr, _build.stream_for(x))
+        *_kernel_args(x, p, out), B, H, W, C, PLANES, tr, _build.stream_for(x))
     _build.check(err, 'fused_bottleneck_image')
     fused_bottleneck_image.launches += 1
     return out
 
 
-def fused_bottleneck_chunked(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
-    """Forward, impl 'chunked': the row-tile kernel for a CUDA tensor
-    (counted in `fused_bottleneck_chunked.launches`), `bottleneck_reference`
-    for a CPU one."""
-    if x.device.type == 'cpu':
-        return bottleneck_reference(x, params)
-    _check_cuda(x, params)
+def _chunked_launch(x: torch.Tensor, p: BottleneckParams) -> torch.Tensor:
+    _check_cuda(x, p)
     B, H, W, C = x.shape
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     tr = rows_per_block(B, H, W, _build.num_sms(x))
     err = _build.library().hpe_bottleneck_fwd(
-        *_kernel_args(x, params, out), B, H, W, C, PLANES, tr, _build.stream_for(x))
+        *_kernel_args(x, p, out), B, H, W, C, PLANES, tr, _build.stream_for(x))
     _build.check(err, 'fused_bottleneck_chunked')
     fused_bottleneck_chunked.launches += 1
     return out
+
+
+def _fake(x, *params):
+    if _build.on_meta(x, *params):
+        _check_cuda(x, BottleneckParams(*params))
+    return x.new_empty(x.shape)
+
+
+_SCHEMA = ('(Tensor x, ' + ', '.join(f'Tensor {n}' for n in BottleneckParams._fields)
+           + ') -> Tensor')
+
+
+def _define_op(name: str, launch):
+    op = torch.library.custom_op(
+        f'hpe::{name}', lambda x, *p: bottleneck_reference(x, BottleneckParams(*p)),
+        mutates_args=(), device_types='cpu', schema=_SCHEMA)
+    op.register_kernel('cuda')(lambda x, *p: launch(x, BottleneckParams(*p)))
+    op.register_fake(_fake)
+
+
+_define_op('fused_bottleneck_image', _image_launch)
+_define_op('fused_bottleneck_chunked', _chunked_launch)
+
+
+def fused_bottleneck_image(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
+    """Forward, impl 'image' (the op `hpe::fused_bottleneck_image`): the
+    cluster kernel for a CUDA tensor (counted in
+    `fused_bottleneck_image.launches`), `bottleneck_reference` for a CPU
+    one. Raises ValueError where no cluster of at most MAX_CLUSTER blocks
+    holds the image, or none can be resident on the card."""
+    return torch.ops.hpe.fused_bottleneck_image(x, *params)
+
+
+def fused_bottleneck_chunked(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
+    """Forward, impl 'chunked' (the op `hpe::fused_bottleneck_chunked`): the
+    row-tile kernel for a CUDA tensor (counted in
+    `fused_bottleneck_chunked.launches`), `bottleneck_reference` for a CPU
+    one."""
+    return torch.ops.hpe.fused_bottleneck_chunked(x, *params)
 
 
 _FORWARD = {'image': fused_bottleneck_image, 'chunked': fused_bottleneck_chunked}

@@ -5,7 +5,9 @@ Port of `hourglass_pose_estimation_tpu/ops/pallas/decode.py::
 decode_peaks_pallas`. The kernel is `csrc/decode.cu`; its header says
 what bounds it. Like the TPU kernel it implements the corrected 0-based
 convention only, i.e. it substitutes for
-`decode_quarter_offset(zero_based=True)` before the inverse affine.
+`decode_quarter_offset(zero_based=True)` before the inverse affine. The
+kernel is the `torch.library` op `hpe::decode_peaks`, the one route to it
+in eager and under `torch.export` alike.
 """
 
 from __future__ import annotations
@@ -78,18 +80,27 @@ def decode_schedule(B: int, H: int, W: int, J: int, aligned: bool = True):
     return -(-H // rows), rows, T, L
 
 
-def decode_peaks(heatmaps: torch.Tensor):
-    """[B, H, W, J] f32 -> (coords [B, J, 2], maxvals [B, J]).
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (counted in `decode_peaks.launches`) or raises."""
-    if heatmaps.device.type == 'cpu':
-        return decode_peaks_reference(heatmaps)
+def _check_decode(heatmaps: torch.Tensor) -> None:
+    """What the kernel takes."""
     if (heatmaps.dtype != torch.float32 or heatmaps.dim() != 4
             or not heatmaps.is_contiguous()):
         raise ValueError('decode_peaks kernel: heatmaps must be a contiguous '
                          f'[B, H, W, J] f32 tensor, got {heatmaps.dtype} '
                          f'{tuple(heatmaps.shape)}')
+
+
+# The kernel as the `torch.library` op `hpe::decode_peaks`: the CPU kernel
+# is the plain version, the CUDA kernel the launch (checks, counted on the
+# public wrapper), and the fake gives the outputs' shapes (and, given meta
+# tensors, refuses what the CUDA kernel would).
+@torch.library.custom_op('hpe::decode_peaks', mutates_args=(), device_types='cpu')
+def _decode_op(heatmaps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return decode_peaks_reference(heatmaps)
+
+
+@_decode_op.register_kernel('cuda')
+def _(heatmaps):
+    _check_decode(heatmaps)
     B, H, W, J = heatmaps.shape
     K, rows, T, L = decode_schedule(B, H, W, J, aligned=heatmaps.data_ptr() % 16 == 0)
     coords = torch.empty((B, J, 2), dtype=torch.float32, device=heatmaps.device)
@@ -100,6 +111,25 @@ def decode_peaks(heatmaps: torch.Tensor):
     _build.check(err, 'decode_peaks')
     decode_peaks.launches += 1
     return coords, maxvals
+
+
+@_decode_op.register_fake
+def _(heatmaps):
+    if _build.on_meta(heatmaps):
+        _check_decode(heatmaps)
+    B, H, W, J = heatmaps.shape
+    f32 = torch.float32
+    return (heatmaps.new_empty((B, J, 2), dtype=f32),
+            heatmaps.new_empty((B, J), dtype=f32))
+
+
+def decode_peaks(heatmaps: torch.Tensor):
+    """[B, H, W, J] f32 -> (coords [B, J, 2], maxvals [B, J]) (the op
+    `hpe::decode_peaks`).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (counted in `decode_peaks.launches`) or raises."""
+    return torch.ops.hpe.decode_peaks(heatmaps)
 
 
 decode_peaks.launches = 0

@@ -9,7 +9,9 @@ and either splits g equally among tied maxima (`maxpool2x2_bwd`, the
 Pallas convention, held to `maxpool2x2_pallas`) or gives all of g to the
 first maximum in row-major order (`maxpool2x2_bwd_first`, the gradient of
 the JAX model's `nn.max_pool` and of `F.max_pool2d`; the model's pools
-take this one).
+take this one). Each kernel is a `torch.library` op (`hpe::maxpool2x2_fwd`,
+`hpe::maxpool2x2_bwd`, `hpe::maxpool2x2_bwd_first`), the one route to it
+in eager and under `torch.export` alike.
 """
 
 from __future__ import annotations
@@ -54,16 +56,47 @@ def maxpool2x2_bwd_first_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Te
             .reshape(x.shape))
 
 
-def maxpool2x2_fwd(x: torch.Tensor) -> torch.Tensor:
-    """Forward, x [B, H, W, C] NHWC with H, W even -> [B, H/2, W/2, C].
+def _check_fwd(x: torch.Tensor) -> int:
+    """What the forward kernel takes; -> element size."""
+    _windows(x)
+    return _check_vectors('maxpool2x2', x)
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (counted in `maxpool2x2_fwd.launches`) or raises."""
-    if x.device.type == 'cpu':
-        return maxpool2x2_reference(x)
+
+def _check_bwd(x: torch.Tensor, g: torch.Tensor, what: str) -> int:
+    """What the backward kernel takes in either mode; -> element size."""
     B, H, W, C = x.shape
     _windows(x)
-    esize = _check_vectors('maxpool2x2', x)
+    if tuple(g.shape) != (B, H // 2, W // 2, C):
+        raise ValueError(f'{what}: x {tuple(x.shape)}, g {tuple(g.shape)}')
+    return _check_vectors(what, x, g)
+
+
+def _bwd(x: torch.Tensor, g: torch.Tensor, first_max: bool) -> torch.Tensor:
+    """Launch the backward kernel in one of its modes (CUDA tensors)."""
+    B, H, W, C = x.shape
+    what = 'maxpool2x2_bwd_first' if first_max else 'maxpool2x2_bwd'
+    esize = _check_bwd(x, g, what)
+    dx = torch.empty_like(x)
+    err = _build.library().hpe_maxpool2x2_bwd(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), B, H, W, C, esize,
+        int(first_max), _build.num_sms(x), _build.stream_for(x))
+    _build.check(err, what)
+    return dx
+
+
+# The kernels as `torch.library` ops: the CPU kernel is the plain version,
+# the CUDA kernel the launch (checks, counted on the public wrapper), and
+# the fake gives the output's shape (and, given meta tensors, refuses what
+# the CUDA kernel would).
+@torch.library.custom_op('hpe::maxpool2x2_fwd', mutates_args=(), device_types='cpu')
+def _fwd_op(x: torch.Tensor) -> torch.Tensor:
+    return maxpool2x2_reference(x)
+
+
+@_fwd_op.register_kernel('cuda')
+def _(x):
+    esize = _check_fwd(x)
+    B, H, W, C = x.shape
     out = torch.empty((B, H // 2, W // 2, C), dtype=x.dtype, device=x.device)
     err = _build.library().hpe_maxpool2x2_fwd(
         x.data_ptr(), out.data_ptr(), B, H, W, C, esize, _build.num_sms(x),
@@ -73,46 +106,75 @@ def maxpool2x2_fwd(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _bwd(x: torch.Tensor, g: torch.Tensor, first_max: bool) -> torch.Tensor:
-    """Launch the backward kernel in one of its modes (CUDA tensors)."""
+@_fwd_op.register_fake
+def _(x):
+    if _build.on_meta(x):
+        _check_fwd(x)
     B, H, W, C = x.shape
-    _windows(x)
-    what = 'maxpool2x2_bwd_first' if first_max else 'maxpool2x2_bwd'
-    if tuple(g.shape) != (B, H // 2, W // 2, C):
-        raise ValueError(f'{what}: x {tuple(x.shape)}, g {tuple(g.shape)}')
-    esize = _check_vectors(what, x, g)
-    dx = torch.empty_like(x)
-    err = _build.library().hpe_maxpool2x2_bwd(
-        x.data_ptr(), g.data_ptr(), dx.data_ptr(), B, H, W, C, esize,
-        int(first_max), _build.num_sms(x), _build.stream_for(x))
-    _build.check(err, what)
-    return dx
+    return x.new_empty((B, H // 2, W // 2, C))
 
 
-def maxpool2x2_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Backward splitting ties, (x [B, H, W, C], g [B, H/2, W/2, C]) -> dx
-    [B, H, W, C].
+@torch.library.custom_op('hpe::maxpool2x2_bwd', mutates_args=(), device_types='cpu')
+def _bwd_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return maxpool2x2_bwd_reference(x, g)
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in `maxpool2x2_bwd.launches`) or raise."""
-    if x.device.type == 'cpu' and g.device.type == 'cpu':
-        return maxpool2x2_bwd_reference(x, g)
+
+@_bwd_op.register_kernel('cuda')
+def _(x, g):
     dx = _bwd(x, g, first_max=False)
     maxpool2x2_bwd.launches += 1
     return dx
 
 
-def maxpool2x2_bwd_first(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Backward giving each window's g to its first maximum, with
-    `maxpool2x2_bwd`'s arguments.
+@torch.library.custom_op('hpe::maxpool2x2_bwd_first', mutates_args=(), device_types='cpu')
+def _bwd_first_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    return maxpool2x2_bwd_first_reference(x, g)
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in `maxpool2x2_bwd_first.launches`) or raise."""
-    if x.device.type == 'cpu' and g.device.type == 'cpu':
-        return maxpool2x2_bwd_first_reference(x, g)
+
+@_bwd_first_op.register_kernel('cuda')
+def _(x, g):
     dx = _bwd(x, g, first_max=True)
     maxpool2x2_bwd_first.launches += 1
     return dx
+
+
+def _bwd_fake(what: str):
+    def fake(x, g):
+        if _build.on_meta(x, g):
+            _check_bwd(x, g, what)
+        return x.new_empty(x.shape)
+    return fake
+
+
+_bwd_op.register_fake(_bwd_fake('maxpool2x2_bwd'))
+_bwd_first_op.register_fake(_bwd_fake('maxpool2x2_bwd_first'))
+
+
+def maxpool2x2_fwd(x: torch.Tensor) -> torch.Tensor:
+    """Forward, x [B, H, W, C] NHWC with H, W even -> [B, H/2, W/2, C] (the
+    op `hpe::maxpool2x2_fwd`).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (counted in `maxpool2x2_fwd.launches`) or raises."""
+    return torch.ops.hpe.maxpool2x2_fwd(x)
+
+
+def maxpool2x2_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Backward splitting ties, (x [B, H, W, C], g [B, H/2, W/2, C]) -> dx
+    [B, H, W, C] (the op `hpe::maxpool2x2_bwd`).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in `maxpool2x2_bwd.launches`) or raise."""
+    return torch.ops.hpe.maxpool2x2_bwd(x, g)
+
+
+def maxpool2x2_bwd_first(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Backward giving each window's g to its first maximum, with
+    `maxpool2x2_bwd`'s arguments (the op `hpe::maxpool2x2_bwd_first`).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in `maxpool2x2_bwd_first.launches`) or raise."""
+    return torch.ops.hpe.maxpool2x2_bwd_first(x, g)
 
 
 _BACKWARDS = {'split': maxpool2x2_bwd, 'first': maxpool2x2_bwd_first}

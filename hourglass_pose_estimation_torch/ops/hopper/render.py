@@ -3,7 +3,9 @@
 Port of `hourglass_pose_estimation_tpu/ops/pallas/render.py::
 render_gaussian_targets_pallas` (`_render_kernel`). The kernel is
 `csrc/render.cu`; its header says what bounds it. Both versions start
-from the integer peaks and weights of `ops/heatmap.py::render_preamble`.
+from the integer peaks and weights of `ops/heatmap.py::render_preamble`. The kernel is the `torch.library` op
+`hpe::render_gaussian`, the one route to it in eager and under
+`torch.export` alike.
 """
 
 from __future__ import annotations
@@ -32,14 +34,8 @@ def render_gaussian_reference(mu: torch.Tensor, weight: torch.Tensor,
     return torch.where(in_window & active, g, torch.zeros((), device=dev))
 
 
-def render_gaussian(mu: torch.Tensor, weight: torch.Tensor, heatmap_size,
-                    sigma) -> torch.Tensor:
-    """mu [B, J, 2] int32, weight [B, J] f32 -> target [B, Hh, Wh, J] f32.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in `render_gaussian.launches`) or raise."""
-    if mu.device.type == 'cpu' and weight.device.type == 'cpu':
-        return render_gaussian_reference(mu, weight, heatmap_size, sigma)
+def _check_render(mu: torch.Tensor, weight: torch.Tensor) -> None:
+    """What the kernel takes."""
     B, J = weight.shape
     if (mu.dtype != torch.int32 or weight.dtype != torch.float32
             or tuple(mu.shape) != (B, J, 2) or mu.device != weight.device
@@ -48,15 +44,49 @@ def render_gaussian(mu: torch.Tensor, weight: torch.Tensor, heatmap_size,
                          f'[B, J, 2] and weight f32 [B, J] on one device; got '
                          f'{mu.dtype} {tuple(mu.shape)} {mu.device}, '
                          f'{weight.dtype} {tuple(weight.shape)} {weight.device}')
-    Wh, Hh = int(heatmap_size[0]), int(heatmap_size[1])
-    out = torch.empty((B, Hh, Wh, J), dtype=torch.float32, device=mu.device)
+
+
+# The kernel as the `torch.library` op `hpe::render_gaussian`: the CPU
+# kernel is the plain version, the CUDA kernel the launch (checks, counted
+# on the public wrapper), and the fake gives the output's shape (and, given
+# meta tensors, refuses what the CUDA kernel would).
+@torch.library.custom_op('hpe::render_gaussian', mutates_args=(), device_types='cpu')
+def _render_op(mu: torch.Tensor, weight: torch.Tensor, width: int, height: int,
+               sigma: float) -> torch.Tensor:
+    return render_gaussian_reference(mu, weight, (width, height), sigma)
+
+
+@_render_op.register_kernel('cuda')
+def _(mu, weight, width, height, sigma):
+    _check_render(mu, weight)
+    B, J = weight.shape
+    out = torch.empty((B, height, width, J), dtype=torch.float32, device=mu.device)
     err = _build.library().hpe_render_gaussian(
-        mu.data_ptr(), weight.data_ptr(), out.data_ptr(), B, Hh, Wh, J,
-        int(3 * sigma), float(np.float32(2.0 * float(sigma) ** 2)),
+        mu.data_ptr(), weight.data_ptr(), out.data_ptr(), B, height, width, J,
+        int(3 * sigma), float(np.float32(2.0 * sigma ** 2)),
         _build.num_sms(mu), _build.stream_for(mu))
     _build.check(err, 'render_gaussian')
     render_gaussian.launches += 1
     return out
+
+
+@_render_op.register_fake
+def _(mu, weight, width, height, sigma):
+    if _build.on_meta(mu, weight):
+        _check_render(mu, weight)
+    B, J = weight.shape
+    return weight.new_empty((B, height, width, J))
+
+
+def render_gaussian(mu: torch.Tensor, weight: torch.Tensor, heatmap_size,
+                    sigma) -> torch.Tensor:
+    """mu [B, J, 2] int32, weight [B, J] f32 -> target [B, Hh, Wh, J] f32
+    (the op `hpe::render_gaussian`).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in `render_gaussian.launches`) or raise."""
+    return torch.ops.hpe.render_gaussian(mu, weight, int(heatmap_size[0]),
+                                         int(heatmap_size[1]), float(sigma))
 
 
 render_gaussian.launches = 0

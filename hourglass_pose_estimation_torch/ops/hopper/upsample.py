@@ -3,8 +3,10 @@
 Port of `hourglass_pose_estimation_tpu/ops/pallas/upsample.py::
 upsample2x_add_pallas` and its custom VJP. The kernels are
 `csrc/upsample.cu` (forward, and the backward of `low`, a 2x2 block sum);
-its header says what bounds them. `upsample2x_add` is differentiable:
-d_skip = g, d_low = `upsample2x_add_bwd(g)`.
+its header says what bounds them. Each is a `torch.library` op,
+`hpe::upsample2x_add` and `hpe::upsample2x_add_bwd`, the one route to it
+in eager and under `torch.export` alike. `upsample2x_add` is
+differentiable: d_skip = g, d_low = `upsample2x_add_bwd(g)`.
 """
 
 from __future__ import annotations
@@ -54,16 +56,35 @@ def _check_vectors(name: str, *ts: torch.Tensor) -> int:
     return esize
 
 
-def _upsample2x_add_fwd(low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-    """Forward: the kernel for CUDA tensors (counted in
-    `upsample2x_add.launches`), the plain version for CPU tensors."""
-    if low.device.type == 'cpu' and skip.device.type == 'cpu':
-        return upsample2x_add_reference(low, skip)
+def _check_upsample(low: torch.Tensor, skip: torch.Tensor) -> int:
+    """What the forward kernel takes; -> element size."""
     B, H, W, C = low.shape
     if tuple(skip.shape) != (B, 2 * H, 2 * W, C):
         raise ValueError(f'upsample2x_add: low {tuple(low.shape)}, '
                          f'skip {tuple(skip.shape)}')
-    esize = _check_vectors('upsample2x_add', low, skip)
+    return _check_vectors('upsample2x_add', low, skip)
+
+
+def _check_upsample_bwd(g: torch.Tensor) -> int:
+    """What the backward kernel takes; -> element size."""
+    if g.shape[1] % 2 or g.shape[2] % 2:
+        raise ValueError(f'upsample2x_add_bwd: odd g {tuple(g.shape)}')
+    return _check_vectors('upsample2x_add_bwd', g)
+
+
+# The kernels as `torch.library` ops: the CPU kernel is the plain version,
+# the CUDA kernel the launch (checks, counted on the public wrapper), and
+# the fake gives the output's shape (and, given meta tensors, refuses what
+# the CUDA kernel would). `torch.export` keeps one `hpe::` node a call.
+@torch.library.custom_op('hpe::upsample2x_add', mutates_args=(), device_types='cpu')
+def _upsample2x_add_op(low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    return upsample2x_add_reference(low, skip)
+
+
+@_upsample2x_add_op.register_kernel('cuda')
+def _(low, skip):
+    esize = _check_upsample(low, skip)
+    B, H, W, C = low.shape
     out = torch.empty_like(skip)
     err = _build.library().hpe_upsample2x_add(
         low.data_ptr(), skip.data_ptr(), out.data_ptr(), B, H, W, C, esize,
@@ -73,17 +94,22 @@ def _upsample2x_add_fwd(low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def upsample2x_add_bwd(g: torch.Tensor) -> torch.Tensor:
-    """Backward of low: g [B, 2H, 2W, C] -> d_low [B, H, W, C].
+@_upsample2x_add_op.register_fake
+def _(low, skip):
+    if _build.on_meta(low, skip):
+        _check_upsample(low, skip)
+    return skip.new_empty(skip.shape)
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (counted in `upsample2x_add_bwd.launches`) or raises."""
-    if g.device.type == 'cpu':
-        return upsample2x_add_bwd_reference(g)
+
+@torch.library.custom_op('hpe::upsample2x_add_bwd', mutates_args=(), device_types='cpu')
+def _upsample2x_add_bwd_op(g: torch.Tensor) -> torch.Tensor:
+    return upsample2x_add_bwd_reference(g)
+
+
+@_upsample2x_add_bwd_op.register_kernel('cuda')
+def _(g):
+    esize = _check_upsample_bwd(g)
     B, H2, W2, C = g.shape
-    if H2 % 2 or W2 % 2:
-        raise ValueError(f'upsample2x_add_bwd: odd g {tuple(g.shape)}')
-    esize = _check_vectors('upsample2x_add_bwd', g)
     dlow = torch.empty((B, H2 // 2, W2 // 2, C), dtype=g.dtype, device=g.device)
     err = _build.library().hpe_upsample2x_add_bwd(
         g.data_ptr(), dlow.data_ptr(), B, H2 // 2, W2 // 2, C, esize,
@@ -93,10 +119,27 @@ def upsample2x_add_bwd(g: torch.Tensor) -> torch.Tensor:
     return dlow
 
 
+@_upsample2x_add_bwd_op.register_fake
+def _(g):
+    if _build.on_meta(g):
+        _check_upsample_bwd(g)
+    B, H2, W2, C = g.shape
+    return g.new_empty((B, H2 // 2, W2 // 2, C))
+
+
+def upsample2x_add_bwd(g: torch.Tensor) -> torch.Tensor:
+    """Backward of low: g [B, 2H, 2W, C] -> d_low [B, H, W, C] (the op
+    `hpe::upsample2x_add_bwd`).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (counted in `upsample2x_add_bwd.launches`) or raises."""
+    return torch.ops.hpe.upsample2x_add_bwd(g)
+
+
 class _UpsampleAdd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, low, skip):
-        return _upsample2x_add_fwd(low, skip)
+        return torch.ops.hpe.upsample2x_add(low, skip)
 
     @staticmethod
     def backward(ctx, g):
@@ -109,8 +152,9 @@ def upsample2x_add(low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     [B, H, W, C], skip [B, 2H, 2W, C], both NHWC, one dtype.
 
     CPU tensors take the plain versions; CUDA tensors launch the forward
-    kernel (counted in `upsample2x_add.launches`) and, in the backward,
-    `upsample2x_add_bwd`, or raise."""
+    kernel (the op `hpe::upsample2x_add`, counted in
+    `upsample2x_add.launches`) and, in the backward, `upsample2x_add_bwd`,
+    or raise."""
     return _UpsampleAdd.apply(low, skip)
 
 

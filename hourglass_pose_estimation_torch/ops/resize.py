@@ -63,6 +63,15 @@ def _device_matrix(make, in_size: int, out_size: int, device: torch.device) -> t
         return torch.from_numpy(make(in_size, out_size)).to(device)
 
 
+def _matrix(make, in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """`_device_matrix`, but made anew while `torch.export` traces (then it
+    becomes a constant of the program; the tracer's tensor must not reach
+    the cache that later eager calls read)."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(make(in_size, out_size)).to(device)
+    return _device_matrix(make, in_size, out_size, device)
+
+
 def _separable_resize(x: torch.Tensor, make, out_hw) -> torch.Tensor:
     """[B, H, W, C] -> [B, h, w, C] with `make`'s weights: the H product,
     then the W product, in f32; the result in x's dtype (x itself when the
@@ -71,9 +80,9 @@ def _separable_resize(x: torch.Tensor, make, out_hw) -> torch.Tensor:
     h, w = int(out_hw[0]), int(out_hw[1])
     if (H, W) == (h, w):
         return x
-    y = torch.einsum('hH,bHWc->bhWc', _device_matrix(make, H, h, x.device),
+    y = torch.einsum('hH,bHWc->bhWc', _matrix(make, H, h, x.device),
                      x.to(torch.float32))
-    y = torch.einsum('wW,bhWc->bhwc', _device_matrix(make, W, w, x.device), y)
+    y = torch.einsum('wW,bhWc->bhwc', _matrix(make, W, w, x.device), y)
     return y.to(x.dtype)
 
 

@@ -1,14 +1,20 @@
 #!/usr/bin/env python
-"""HTTP keypoint server on the card: config + weights -> served model.
+"""HTTP keypoint server on the card: an exported program, or config +
+weights -> served model.
 
-Counterpart of `tools/serve_http.py`, which serves an exported StableHLO
-artifact. Here the inference function is built in process by
-`export.make_inference_fn` from a config YAML (MODEL.*, DATASET.inp_res
-and name, EVAL.export_*) and a weights file (`torch.save` of the port
-model's `state_dict`), then served the same way: a dynamic micro-batcher
-pads partial batches to EVAL.export_batch, and SIGTERM/SIGINT drain the
-in-flight batches before exit.
+Counterpart of `tools/serve_http.py`. Given one exported program (a .pt2
+that `python -m hourglass_pose_estimation_torch.export` wrote), it serves
+that, at the program's own static batch and frame shape
+(`serving.load_serving_artifact`), as the JAX tool serves a StableHLO
+artifact. Given a config YAML (MODEL.*, DATASET.inp_res and name,
+EVAL.export_*) and a weights file (`torch.save` of the port model's
+`state_dict`), it builds the inference function in process with
+`export.make_inference_fn`. Either is served the same way: a dynamic
+micro-batcher pads partial batches to the static batch, and
+SIGTERM/SIGINT drain the in-flight batches before exit.
 
+    python -m hourglass_pose_estimation_torch.serve_http \\
+        checkpoints/export/model.pt2 --port 8000
     python -m hourglass_pose_estimation_torch.serve_http \\
         configs/train_mpii_8stack.yaml weights.pt --port 8000 \\
         EVAL.export_keypoints=true EVAL.export_preprocess=true \\
@@ -55,9 +61,10 @@ def build_inference(cfg, weights: str, device='cuda'):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument('config', help='YAML config (MODEL, DATASET, EVAL)')
-    ap.add_argument('weights', help='torch.save of the model state_dict')
-    ap.add_argument('overrides', nargs='*', help='SECTION.key=value')
+    ap.add_argument('inputs', nargs='+', metavar='ARTIFACT | CONFIG WEIGHTS [OVERRIDES]',
+                    help='an exported program (.pt2), or a YAML config (MODEL, '
+                         'DATASET, EVAL), a torch.save of the model state_dict '
+                         'and SECTION.key=value overrides')
     ap.add_argument('--host', default='127.0.0.1')
     ap.add_argument('--port', type=int, default=8000)
     ap.add_argument('--device', default='cuda')
@@ -67,24 +74,30 @@ def main(argv=None):
     ap.add_argument('--max-queue', type=int, default=0,
                     help='queued-frame cap before submits get HTTP 503 '
                          '(0 = 8 batches)')
-    args = ap.parse_args(argv)
+    args = ap.parse_intermixed_args(argv)
 
     import numpy as np
 
-    from hourglass_pose_estimation_torch.config import load_config
-    from hourglass_pose_estimation_torch.serving import MicroBatcher, make_server
+    from hourglass_pose_estimation_torch.serving import (
+        MicroBatcher, load_serving_artifact, make_server)
 
-    cfg = load_config(args.config, overrides=args.overrides)
-    fn, batch, frame_shape, dtype = build_inference(cfg, args.weights,
-                                                    args.device)
+    if len(args.inputs) == 1 and args.inputs[0].endswith('.pt2'):
+        what = args.inputs[0]
+        fn, batch, frame_shape, dtype = load_serving_artifact(what, args.device)
+    elif len(args.inputs) >= 2:
+        from hourglass_pose_estimation_torch.config import load_config
+        cfg = load_config(args.inputs[0], overrides=args.inputs[2:])
+        what = f'{cfg.model.arch} s{cfg.model.num_stacks}'
+        fn, batch, frame_shape, dtype = build_inference(cfg, args.inputs[1], args.device)
+    else:
+        ap.error('give an exported program (.pt2), or a config and weights')
     fn(np.zeros((batch,) + frame_shape, dtype))    # build kernels, warm up
     batcher = MicroBatcher(fn, batch, frame_shape, dtype=dtype,
                            max_wait_ms=args.max_wait_ms,
                            max_queue=args.max_queue)
     srv = make_server(batcher, args.host, args.port)
-    print(f'serving {cfg.model.arch} s{cfg.model.num_stacks} on '
-          f'{args.device} (batch {batch}, frame {frame_shape} {dtype}) on '
-          f'http://{srv.server_address[0]}:{srv.server_address[1]}',
+    print(f'serving {what} on {args.device} (batch {batch}, frame {frame_shape} '
+          f'{dtype}) on http://{srv.server_address[0]}:{srv.server_address[1]}',
           flush=True)
 
     # SIGTERM/SIGINT: stop taking requests, drain in-flight batches and

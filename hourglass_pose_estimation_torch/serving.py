@@ -10,9 +10,10 @@ default 8 batches) and `submit` raises QueueFull at capacity; entries
 whose caller cancelled while still queued are shed at dequeue time, so
 the card never computes results nobody will read.
 
-The inference function is built by `export.make_inference_fn`; its
-outputs are CUDA tensors, fetched with one device-to-host copy per output
-tensor. `serve_http.py` builds and serves one from a config and weights.
+The inference function is built by `export.make_inference_fn`, or loaded
+from an exported program by `load_serving_artifact`; its outputs are CUDA
+tensors, fetched with one device-to-host copy per output tensor.
+`serve_http.py` serves either.
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from hourglass_pose_estimation_torch._device import resolve_device
 
 
 class Unavailable(RuntimeError):
@@ -204,6 +207,23 @@ def _slice_tree(out: Any, i: int):
     if isinstance(out, (tuple, list)):
         return tuple(_slice_tree(o, i) for o in out)
     return np.asarray(out[i])
+
+
+def load_serving_artifact(path: str, device='cuda') -> Tuple[Callable, int, Tuple[int, ...],
+                                                             np.dtype]:
+    """Load a program `export.export_program` saved, for serving ->
+    (callable over frames, batch size, per-frame shape, input dtype), read
+    from the program's own static input. The counterpart of the JAX
+    package's `load_serving_artifact`; the callable's results stay on
+    `device`."""
+    from hourglass_pose_estimation_torch.export import read_program, serving_callable
+    dev = resolve_device(device)
+    program = read_program(path, dev)
+    name = program.graph_signature.user_inputs[0]
+    spec = next(n for n in program.graph.nodes if n.name == name).meta['val']
+    shape = tuple(int(d) for d in spec.shape)
+    dtype = torch.empty((), dtype=spec.dtype).numpy().dtype
+    return serving_callable(program.module(), dev), shape[0], shape[1:], dtype
 
 
 def make_server(batcher: MicroBatcher, host: str = '127.0.0.1',

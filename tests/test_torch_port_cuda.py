@@ -585,3 +585,61 @@ def test_prepare_host_batch_on_the_card_matches_the_cpu(dev):
     assert float((got['image'].cpu() - ref['image']).abs().max()) <= 1e-6
     assert torch.equal(got['target_weight'].cpu(), ref['target_weight'])
     assert float((got['target'].cpu() - ref['target']).abs().max()) <= 1e-6
+
+
+def _cuda_op_cases(dev):
+    """Valid inputs on the card for each of the nine `hpe::` ops."""
+    torch.manual_seed(0)
+    # detached: a folded vector may be the block's own bias parameter
+    prm = [t.detach() for t in Bottleneck(256, 128).to(dev).fused_params()]
+    xb = torch.randn(2, 16, 16, 256, device=dev).to(torch.bfloat16)
+    t = lambda *s: torch.randn(*s, device=dev)
+    mu = torch.randint(-3, 20, (2, 16, 2), device=dev, dtype=torch.int32)
+    return {
+        'fused_bottleneck_chunked': (xb, *prm),
+        'fused_bottleneck_image': (xb, *prm),
+        'upsample2x_add': (t(2, 4, 4, 64), t(2, 8, 8, 64)),
+        'upsample2x_add_bwd': (t(2, 8, 8, 64),),
+        'maxpool2x2_fwd': (t(2, 8, 8, 64),),
+        'maxpool2x2_bwd': (t(2, 8, 8, 64), t(2, 4, 4, 64)),
+        'maxpool2x2_bwd_first': (t(2, 8, 8, 64), t(2, 4, 4, 64)),
+        'render_gaussian': (mu, torch.ones(2, 16, device=dev), 16, 12, 1.0),
+        'decode_peaks': (t(2, 8, 8, 16),),
+    }
+
+
+@pytest.mark.parametrize('name', sorted(w.__name__ for w in KERNEL_WRAPPERS))
+def test_kernel_op_on_the_card_agrees_with_its_fake(dev, name):
+    """Each `hpe::` op's CUDA kernel (the launch) against its schema and its
+    fake: output shapes, dtypes and strides, as `torch.export` relies on."""
+    torch.library.opcheck(getattr(torch.ops.hpe, name).default, _cuda_op_cases(dev)[name])
+
+
+def test_exported_flagship_program_keeps_the_kernels(dev, tmp_path):
+    """The flagship serving function (8 stacks, folded BN, bf16 weights,
+    uint8 frames, the quarter decode) exported and loaded back: the same
+    bits as make_inference_fn, and per call exactly the launches of the
+    in-process function (65 fused bottleneck, 32 upsample, 33 pool, 1
+    decode)."""
+    from hourglass_pose_estimation_torch.data import get_meanstd
+    from hourglass_pose_estimation_torch.export import export_program, load_program
+    from hourglass_pose_estimation_torch.ops.hopper import bottleneck as bk
+    torch.manual_seed(0)
+    model = get_model('hg', device='cpu', num_stacks=8, num_classes=16,
+                      fuse_block=True, fuse_upsample=True)
+    kw = dict(decode='quarter', fold_bn=True, weights_dtype=torch.bfloat16,
+              preprocess=get_meanstd('mpii'), input_res=256)
+    frames = np.random.RandomState(1).randint(0, 256, (4, 256, 256, 3)).astype(np.uint8)
+    path = export_program(model, None, frames.shape, str(tmp_path / 'model.pt2'), **kw)
+    fn, program = make_inference_fn(model, None, **kw), load_program(path)
+    ref = fn(frames)
+    program(frames)
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    got = program(frames)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    want = {f'fused_bottleneck_{bk.DEFAULT_IMPL}': 65, 'upsample2x_add': 32,
+            'maxpool2x2_fwd': 33, 'decode_peaks': 1}
+    assert launches == {k: want.get(k, 0) for k in launches}
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))

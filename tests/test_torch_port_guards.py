@@ -23,11 +23,15 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'hourglass_pose_estimation_tpu')
 # files that import no cv2 at all, not even where they run (chip_smoke.py
 # does: its host data phase decodes image files and requires cv2)
 NO_CV2 = ('interop.py', 'mspn.py', 'resize.py', 'coco_json.py', 'mpii.py', 'mscoco.py',
-          'native.py', 'pipeline.py')
+          'native.py', 'pipeline.py', '__main__.py', 'summary.py')
 # the host data layer: the readers, the native loader's binding and the
 # host pipeline (cv2 is imported where an image file is read or warped)
 HOST_DATA = {f'hourglass_pose_estimation_torch.data.{m}' for m in (
     'common', 'coco_json', 'fabricate', 'mpii', 'mscoco', 'native', 'pipeline')}
+# export and the serving tools (serving_demo imports cv2 where it reads
+# and draws frames)
+SERVING_TOOLS = {f'hourglass_pose_estimation_torch.{m}' for m in (
+    'export', 'export.__main__', 'serving', 'serve_http', 'serving_demo', 'utils.summary')}
 
 # the reference torch model's counts (num_blocks=1, num_classes=16, sum)
 REFERENCE_COUNTS = {
@@ -69,8 +73,9 @@ def test_importing_the_port_loads_no_cv2():
     r = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert {'hourglass_pose_estimation_torch.interop',
-            'hourglass_pose_estimation_torch.models.mspn'} | HOST_DATA <= set(_port_modules())
+    assert ({'hourglass_pose_estimation_torch.interop',
+             'hourglass_pose_estimation_torch.models.mspn'} | HOST_DATA | SERVING_TOOLS
+            <= set(_port_modules()))
 
 
 def test_port_sources_import_no_jax():
@@ -106,6 +111,33 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     cfg.write_text('MODEL:\n  num_stacks: 1\n')
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_http.main([str(cfg), str(tmp_path / 'w.pt')])
+
+
+def test_export_and_serving_tools_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """export_program, load_program, load_serving_artifact, the export CLI
+    and serving_demo refuse to start without a GPU unless the CPU is asked
+    for (before any file is read)."""
+    from hourglass_pose_estimation_torch import serving_demo
+    from hourglass_pose_estimation_torch.export import export_program, load_program
+    from hourglass_pose_estimation_torch.export.__main__ import main as export_main
+    from hourglass_pose_estimation_torch.serving import load_serving_artifact
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    model = get_model('hg', device='cpu', num_stacks=1, num_classes=4, num_feats=16)
+    missing = str(tmp_path / 'missing.pt2')
+    cfg = tmp_path / 'c.yaml'
+    cfg.write_text(f'MODEL:\n  num_stacks: 1\nCOMMON:\n  resume: {missing}\n')
+    calls = [lambda: export_program(model, None, (1, 64, 64, 3), missing),
+             lambda: load_program(missing),
+             lambda: load_serving_artifact(missing),
+             lambda: export_main([str(cfg)]),
+             lambda: serving_demo.main(['sync', missing, str(tmp_path / 'x.jpg')])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    with pytest.raises(FileNotFoundError):
+        load_program(missing, device='cpu')
+    with pytest.raises(FileNotFoundError, match="Checkpoint doesn't exist"):
+        export_main([str(cfg), '--device', 'cpu'])
 
 
 def test_trainer_and_cli_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
