@@ -138,9 +138,31 @@ failure):
  17. MSPN at full width through the export CLI on the MSPN trainer's
      checkpoint_2, loaded and held bit-equal to make_inference_fn (1 decode
      launch a call, no other);
- 18. the `kernels` JSON line (launches summed over the main paths of
-     phases 4, 6-11, 12-14, 15, 16 and 17; the pool backward that splits
-     ties is on none of them), then the result line.
+ 18. data parallelism (`parallel/`): (a) the flagship train step at batch
+     64 under DDP over NCCL at world size 1 (a process group of this
+     process alone), held equal to the one-process step from the same
+     weights and draws (the loss and every gradient), both timed in turns
+     (step ms p50); (b) two ranks on this one card over gloo (NCCL refuses
+     two ranks on one device), each a process of its own whose first use
+     of the kernels builds them into one fresh directory at the same time
+     as the other's: the 8-stack at full width, bf16, global batch 32 (16 a
+     rank), 3 implicit steps (DDP, BatchNorm synced over the ranks) against
+     the one-process step on the same 32 samples (each step's loss, equal
+     on both ranks, and the parameters' update after step 3, within the
+     gates; the step-1 gradients beside one process's own noise with the
+     batch's halves swapped; one f32 step, TF32 off, whose gradients are
+     held to one process's), then 2 explicit steps with sync_bn off (finite; their running
+     statistics differ across the ranks and from the synced step's after
+     as many steps, which are equal across the ranks); per rank step ms
+     p50, global img/s, peak memory and launches (exact); (c) the trainer
+     CLI on the two ranks: one epoch of 4 steps at batch 32 on synthetic
+     data, rank 0 writing checkpoint_1, and a resume from it to epoch 2
+     that restores every tensor exactly on both ranks; launches exact; a
+     failed rank fails the run;
+ 19. the `kernels` JSON line (launches summed over the main paths of
+     phases 4, 6-11, 12-14, 15, 16, 17 and 18, each rank's among them; the
+     pool backward that splits ties is on none of them), then the result
+     line.
 --profile adds torch.profiler breakdowns (by kernel, by launching
 PyTorch op, by kind) of one serving batch and of one train step, each for
 the hourglass and for MSPN, and the serving front end's rate alone.
@@ -205,8 +227,11 @@ TOL_F32_REFERENCE = 3e-2
 # f32 arithmetic in the same order, rounded once), except the render: the
 # card's expf against PyTorch's exp, within 1 ulp of f32
 RENDER_MAX_ULP = 1
-# the flagship train step
+# the flagship train step, and its launches on any path (the device
+# pipeline's render, 32 + 32 upsample and 33 + 33 pool)
 TRAIN_BATCH = 64
+TRAIN_LAUNCHES = dict(upsample2x_add=32, upsample2x_add_bwd=32, maxpool2x2_fwd=33,
+                      maxpool2x2_bwd_first=33, render_gaussian=1)
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 DS_KW = dict(num_samples=64, inp_res=RES, out_res=RES // 4, sigma=1,
              scale_factor=0.25, rot_factor=30)
@@ -314,6 +339,45 @@ TOL_CV2_WARP = (1, 1e-4)
 # pipelines to (tests/test_pipeline.py), median and 99th percentile
 TOL_HOST_CROPS = (1.0, 4.0)
 
+# the data-parallel phase.
+# (a) DDP over NCCL at world size 1 against the one-process step at batch
+# 64: the loss and the gradients (relative L2), held equal (read 0 on an
+# H100); then both timed in turns
+DP_WORLD1_WARMUP, DP_WORLD1_TIMED = 2, 5
+TOL_DP_WORLD1 = 0.0
+# (b) two ranks on the one card over gloo (NCCL refuses two ranks on one
+# device): global batch 32 (16 a rank), DP_STEPS implicit steps (DDP, sync
+# BN) against the one-process step on the same 32 samples: the loss of
+# each step, relative, and the parameters' update after the last,
+# relative L2 of the difference over the one process's update. Each
+# stands beside one process's own noise: the same steps with the batch's
+# halves swapped (the same sums in another order). In bf16 that noise is
+# large: the step-1 gradients read 0.29 relative L2 between the ranks and
+# one process on an H100, and 0.31 with the halves swapped, and RMSprop's
+# first update, lr * 10 * sign(g), moves each parameter whose gradient is
+# that noise by +-lr * 10 at random. So the gradients are held in an f32
+# step (TF32 off): read 4.9e-3, held at 2e-2. The losses read at most
+# 3.2e-3 apart, held at 1.3e-2; the update 0.60, held below 1.0 (updates
+# of independent signs read sqrt(2)). Then DP_EXPLICIT_STEPS explicit
+# steps with sync_bn off. At the
+# flagship schedule's rate past both decays (2.5e-5), as the trainer
+# phase: at 2.5e-3 the first update lifts the loss 30-fold (0.08 to 2.7 at
+# a small size on the CPU) and the steps after it compare chaos.
+DP_RANKS, DP_GLOBAL_BATCH, DP_STEPS, DP_EXPLICIT_STEPS = 2, 32, 3, 2
+DP_OPT = (2.5e-5, [], 0.1, 100)
+TOL_DP_LOSS = 1.3e-2
+TOL_DP_UPDATE = 1.0
+TOL_DP_GRAD_F32 = 2e-2
+# (c) the trainer CLI on the two ranks: one epoch of 4 steps (batch 32),
+# validation of 4 batches, a snapshot; then a resume to epoch 2
+DP_TRAINER_STEPS = 4
+DP_TRAINER = ['DATASET.name=synthetic', 'DATASET.num_samples=128', 'TRAIN.epochs=1',
+              f'TRAIN.steps_per_epoch={DP_TRAINER_STEPS}', 'COMMON.snapshot=1',
+              'TRAIN.learning_rate=2.5e-5']
+# every rank of (b) and (c) together, the build included; also each
+# collective's limit
+DP_TIMEOUT_S = 600
+DP_DEVICE = 'cuda:0'
 
 def fail(msg: str) -> None:
     raise SystemExit(f'chip_smoke: FAIL: {msg}')
@@ -952,15 +1016,16 @@ def train_data(batch: int):
     return ds.canvas_batch(range(batch), canvas=RES), make_spec(ds)
 
 
-def flagship_model(seed: int, device='cuda'):
+def flagship_model(seed: int, device='cuda', **kwargs):
     """HourglassNet(8 stacks, 1 block, 16 joints, sum merges), bf16
-    compute, f32 parameters and BN, seeded weights, the kernels on."""
+    compute (unless kwargs name another dtype), f32 parameters and BN,
+    seeded weights, the kernels on."""
     import torch
     from hourglass_pose_estimation_torch.models import get_model
     torch.manual_seed(seed)
     return get_model('hg', device=device, num_stacks=8, num_blocks=1,
                      num_classes=16, mobile=False, skip_mode='sum',
-                     fuse_block=True, fuse_upsample=True)
+                     fuse_block=True, fuse_upsample=True, **kwargs)
 
 
 def train_phase(seed: int, raw, spec, batch: int, paths: dict):
@@ -1013,8 +1078,7 @@ def train_phase(seed: int, raw, spec, batch: int, paths: dict):
         losses.append(float(m['loss']))              # waits for the step
         times.append(time.perf_counter() - t0)
     paths['train'] = launches = read_counts()
-    per_step = dict(upsample2x_add=32, upsample2x_add_bwd=32, maxpool2x2_fwd=33,
-                    maxpool2x2_bwd_first=33, render_gaussian=1)
+    per_step = TRAIN_LAUNCHES
     expect_counts(first, 'train step', **per_step)
     expect_counts(launches, f'{TRAIN_TIMED} train steps',
                   **{k: v * TRAIN_TIMED for k, v in per_step.items()})
@@ -1263,10 +1327,8 @@ def trainer_phase(paths: dict, tmp: str) -> dict:
     # 33 + 33 pool and 1 render; per validation batch 65 fused bottlenecks,
     # 32 upsample, 33 pool and 1 render; the frozen epoch adds 65 fused
     # bottleneck forwards and 65 backward calls of its Function per step
-    per_step = dict(upsample2x_add=32, upsample2x_add_bwd=32, maxpool2x2_fwd=33,
-                    maxpool2x2_bwd_first=33, render_gaussian=1)
-    per_val = {fused_name(): 65, 'upsample2x_add': 32, 'maxpool2x2_fwd': 33,
-               'render_gaussian': 1}
+    per_step = TRAIN_LAUNCHES
+    per_val = eval_launches()
     total = {}
     epochs = [(run, h, c) for run in runs for h, c in zip(run.history, run.counts)]
     for run, h, c in epochs:
@@ -1705,10 +1767,8 @@ def host_data_phase(tmp: str, seed: int, paths: dict, card: str, device='cuda') 
                 f'DATASET.annotation_path={ann}'] + HOST_OVERRIDES
     coco_cfg = [str(REPO / 'configs' / 'train_coco_8stack.yaml'), f'DATASET.image_path={cimg}',
                 f'DATASET.annotation_path={cann}'] + HOST_OVERRIDES
-    per_step = dict(upsample2x_add=32, upsample2x_add_bwd=32, maxpool2x2_fwd=33,
-                    maxpool2x2_bwd_first=33, render_gaussian=1)
-    per_val = {fused_name(): 65, 'upsample2x_add': 32, 'maxpool2x2_fwd': 33,
-               'render_gaussian': 1}
+    per_step = TRAIN_LAUNCHES
+    per_val = eval_launches()
     per_predict = {fused_name(): 130, 'upsample2x_add': 64, 'maxpool2x2_fwd': 66}
 
     # the host's costs, and cv2's file crops against the numpy warp
@@ -2451,6 +2511,370 @@ def mspn_export_phase(tmp: str, ckpt: str, seed: int, paths: dict) -> dict:
     return out
 
 
+def eval_launches() -> dict:
+    """Launches of one flagship eval forward (running-average BN: the fused
+    bottleneck, DEFAULT_IMPL) and its target render."""
+    return {fused_name(): 65, 'upsample2x_add': 32, 'maxpool2x2_fwd': 33, 'render_gaussian': 1}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def bn_stats(model):
+    """Every BatchNorm's running mean and variance, as one vector."""
+    import torch
+    from hourglass_pose_estimation_torch.models.norm import BatchNorm
+    return torch.cat([t.detach().float().reshape(-1) for m in model.modules()
+                      if isinstance(m, BatchNorm) for t in (m.running_mean, m.running_var)])
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().float().cpu().clone() for n, p in model.named_parameters()}
+
+
+def dict_rel_l2(got: dict, ref: dict) -> float:
+    """Relative L2 of `got`'s tensors against `ref`'s, over all of them."""
+    num = sum(float((got[n].double() - t.double()).square().sum()) for n, t in ref.items())
+    return (num / sum(float(t.double().square().sum()) for t in ref.values())) ** 0.5
+
+
+def timed_steps(step, state, raw, seed: int, n: int):
+    """n steps -> (state, the loss of each, the seconds of each); each ends
+    in a host read of its loss, which waits for the step."""
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = step(state, raw, seed)
+        losses.append(float(m['loss']))
+        times.append(time.perf_counter() - t0)
+    return state, losses, times
+
+
+def p50(times) -> float:
+    return sorted(times)[len(times) // 2] * 1e3
+
+
+def dp_world1_phase(seed: int, raw, spec, paths: dict) -> dict:
+    """(a) The flagship train step under DDP over NCCL at world size 1 (a
+    process group of this process alone): one step from the same weights
+    and draws as the one-process step, held equal (the loss and every
+    gradient), then both timed in turns."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from hourglass_pose_estimation_torch.parallel import (
+        make_mesh, maybe_initialize_distributed, sync_batch_norm)
+    from hourglass_pose_estimation_torch.runner import init_state, make_optimizer, make_train_step
+    env = dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0', MASTER_ADDR='127.0.0.1',
+               MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        check(maybe_initialize_distributed('cuda', verbose=False) == (0, 1)
+              and dist.get_backend() == 'nccl', 'dp world 1: no NCCL group of one rank')
+        tx = make_optimizer(*OPT)
+        model = sync_batch_norm(flagship_model(seed))       # as the Trainer builds it
+        plain, ddp = init_state(copy.deepcopy(model), tx), init_state(model, tx)
+        step_plain, step_ddp = make_train_step(spec), make_train_step(spec, mesh=make_mesh())
+        zero_counts()
+        ddp, m_ddp = step_ddp(ddp, raw, seed)
+        loss_ddp = float(m_ddp['loss'])
+        paths['dp_world1'] = counts = read_counts()
+        plain, m_plain = step_plain(plain, raw, seed)
+        loss_plain = float(m_plain['loss'])
+        d_loss = abs(loss_ddp - loss_plain) / abs(loss_plain)
+        g_all, g_leaf, g_name = grad_rel_l2(ddp.model, plain.model)
+        expect_counts(counts, 'dp world 1: DDP step', **TRAIN_LAUNCHES)
+        times = {'plain': [], 'ddp': []}
+        for i in range(DP_WORLD1_WARMUP + DP_WORLD1_TIMED):
+            for name in (('plain', 'ddp') if i % 2 else ('ddp', 'plain')):
+                st, fn = (plain, step_plain) if name == 'plain' else (ddp, step_ddp)
+                _, _, t = timed_steps(fn, st, raw, seed, 1)
+                if i >= DP_WORLD1_WARMUP:
+                    times[name] += t
+        out = dict(batch=len(raw['canvas']), loss_ddp=loss_ddp, loss_plain=loss_plain,
+                   loss_rel=d_loss, grad_rel_l2=g_all, worst_leaf=g_name, worst_leaf_rel_l2=g_leaf,
+                   ddp_step_ms_p50=p50(times['ddp']), plain_step_ms_p50=p50(times['plain']),
+                   ddp_step_ms=[t * 1e3 for t in times['ddp']],
+                   plain_step_ms=[t * 1e3 for t in times['plain']])
+        out['ddp_overhead_ms'] = out['ddp_step_ms_p50'] - out['plain_step_ms_p50']
+        print('dp world 1 (NCCL): ' + json.dumps(out), flush=True)
+        check(d_loss <= TOL_DP_WORLD1, f'dp world 1: loss DDP vs one process rel {d_loss:.3e}')
+        check(g_all <= TOL_DP_WORLD1, f'dp world 1: gradients DDP vs one process {g_all:.3e}')
+        return out
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_rank(work: str, seed: int) -> int:
+    """One of the DP_RANKS ranks of the data-parallel phase, in a process of
+    its own on cuda:0 over gloo: its first use of the kernels builds them
+    into a fresh directory while the other rank does the same; DP_STEPS
+    implicit (DDP, sync BN) steps on its rows of the global batch, then
+    DP_EXPLICIT_STEPS explicit steps with sync_bn off from the same weights,
+    one implicit step in f32, then the trainer CLI (one epoch, then a
+    resume to epoch 2). Writes
+    `<work>/rank<r>.json` (and its parameters and statistics)."""
+    import os
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    from hourglass_pose_estimation_torch.ops.hopper import _build
+    from hourglass_pose_estimation_torch.parallel import (
+        make_mesh, make_shard_map_train_step, maybe_initialize_distributed, sync_batch_norm)
+    from hourglass_pose_estimation_torch.runner import init_state, make_optimizer, make_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(work)
+    rank = int(os.environ['RANK'])
+    _build.BUILD_DIR = work / 'kernels'
+    t0 = time.time()
+    lib = _build.library()
+    out = dict(rank=rank, build_s=time.time() - t0, library=Path(lib._name).name)
+    maybe_initialize_distributed(DP_DEVICE, backend='gloo', timeout=DP_TIMEOUT_S, verbose=False)
+    mesh = make_mesh(0, 1, DP_DEVICE)
+    raw, spec = train_data(DP_GLOBAL_BATCH)
+    b = DP_GLOBAL_BATCH // DP_RANKS
+    mine = {k: v[rank * b:(rank + 1) * b] for k, v in raw.items()}
+    tx = make_optimizer(*DP_OPT)
+
+    def run(what, step, state, n, stats_after=None, save_grads=False):
+        """n steps; the BatchNorm statistics after step `stats_after` saved,
+        and with `save_grads` rank 0's (averaged) gradients of step 1."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        losses, times = [], []
+        for i in range(n):
+            state, l, t = timed_steps(step, state, mine, seed, 1)
+            losses += l
+            times += t
+            if i + 1 == stats_after:
+                torch.save(bn_stats(state.model).cpu(), work / f'stats_{what}{rank}.pt')
+            if i == 0 and rank == 0 and save_grads:
+                torch.save(grads_of(state.model), work / f'grads_{what}.pt')
+        counts = read_counts()
+        expect_counts(counts, f'dp rank {rank}: {n} {what} steps',
+                      **{k: v * n for k, v in TRAIN_LAUNCHES.items()})
+        check(all(abs(v) < float('inf') for v in losses), f'dp rank {rank} {what}: {losses}')
+        out[what] = dict(losses=losses, step_ms=[t * 1e3 for t in times], step_ms_p50=p50(times),
+                         global_images_per_s=DP_GLOBAL_BATCH / p50(times) * 1e3,
+                         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         launches=counts)
+        return state
+
+    state = init_state(sync_batch_norm(flagship_model(seed)), tx)
+    state = run('implicit', make_train_step(spec, mesh=mesh), state, DP_STEPS,
+                stats_after=DP_EXPLICIT_STEPS, save_grads=True)
+    if rank == 0:
+        torch.save({n: p.detach().cpu() for n, p in state.model.named_parameters()},
+                   work / 'implicit_params.pt')
+    del state
+    torch.cuda.empty_cache()
+    state = init_state(flagship_model(seed), tx)
+    state = run('explicit', make_shard_map_train_step(spec, mesh, sync_bn=False), state,
+                DP_EXPLICIT_STEPS, stats_after=DP_EXPLICIT_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    state = init_state(sync_batch_norm(flagship_model(seed, dtype=torch.float32)), tx)
+    state = run('f32', make_train_step(spec, mesh=mesh), state, 1, save_grads=True)
+    del state
+    torch.cuda.empty_cache()
+
+    runs = []
+    argv = [str(REPO / 'configs' / 'train_mpii_8stack.yaml')] + DP_TRAINER + [
+        f'COMMON.checkpoint_dir={work / "trainer"}']
+    flags = ['--device', DP_DEVICE, '--backend', 'gloo']
+    trainer = counting_trainer(runs)
+    out['trainer_s'] = run_main(argv + flags, f'dp rank {rank} trainer', Trainer=trainer)
+    ckpts = next((work / 'trainer').glob('*/ckpts'))
+    out['written'] = sorted(p.name for p in ckpts.iterdir())
+    out['resumed_s'] = run_main(
+        argv + ['TRAIN.epochs=2', f'COMMON.resume={ckpts / "checkpoint_1"}'] + flags,
+        f'dp rank {rank} trainer, resumed', Trainer=trainer)
+    out['trainer'] = [dict(history=r.history, counts=r.counts, resumed=r.resumed,
+                           steps=r.steps_per_epoch, val_batches=len(r.val_loader)) for r in runs]
+    (work / f'rank{rank}.json').write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def wait_ranks(procs, logs, timeout_s: float) -> None:
+    """Wait for every rank; the first to fail, or the time limit, stops them
+    all and fails the run with their logs' tails."""
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if not all(p.returncode == 0 for p in procs):
+        fail('dp: a rank failed\n' + '\n'.join(
+            f'--- rank {r} (exit {p.returncode})\n' + Path(log).read_text(errors='replace')[-4000:]
+            for r, (p, log) in enumerate(zip(procs, logs))))
+
+
+def one_process_steps(seed: int, raw, spec, steps: int, dtype=None, swap: bool = False):
+    """`steps` one-process train steps (DP_OPT) on the global batch, each on
+    the images its step's generator draws (the device pipeline's), with
+    the batch's halves swapped when `swap` -> (the losses, the gradients
+    of step 1, the parameters after, the parameters before; on the CPU)."""
+    import torch
+    from hourglass_pose_estimation_torch.data import augment_batch, sample_augmentations, to_device
+    from hourglass_pose_estimation_torch.runner import init_state, make_optimizer, make_train_step
+    from hourglass_pose_estimation_torch.runner.train_state import step_generator
+    model = flagship_model(seed, **({'dtype': dtype} if dtype else {}))
+    params = lambda: {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}
+    start = params()
+    dev = next(model.parameters()).device
+    state = init_state(model, make_optimizer(*DP_OPT))
+    step = make_train_step(spec, device_pipeline=False)
+    data = to_device(raw, dev)
+    losses, grads = [], None
+    for s in range(steps):
+        staged = augment_batch(data, sample_augmentations(
+            step_generator(seed, s, dev), data['scale'], scale_factor=spec.scale_factor,
+            rot_factor=spec.rot_factor, train=True), spec, True)
+        batch = {k: staged[k].roll(DP_GLOBAL_BATCH // DP_RANKS, 0) if swap else staged[k]
+                 for k in ('image', 'target', 'target_weight')}
+        state, m = step(state, batch, seed)
+        losses.append(float(m['loss']))
+        if s == 0:
+            grads = grads_of(model)
+    return losses, grads, params(), start
+
+
+def dp_ranks_phase(seed: int, paths: dict, tmp: str) -> dict:
+    """(b) DP_RANKS ranks on this one card over gloo (NCCL refuses two ranks
+    on one device), each in a process of its own (`dp_rank`), against the
+    one-process step on the same global batch of DP_GLOBAL_BATCH, and (c)
+    the trainer CLI on them."""
+    import os
+    import torch
+    raw, spec = train_data(DP_GLOBAL_BATCH)
+    # one process on the same global batch, and the same with the batch's
+    # halves swapped (the same sums in another order: its own noise), in
+    # bf16 for every step and in f32 (TF32 off) for step 1
+    ref_losses, ref_grads, ref, start = one_process_steps(seed, raw, spec, DP_STEPS)
+    sw_losses, sw_grads, sw, _ = one_process_steps(seed, raw, spec, DP_STEPS, swap=True)
+    _, ref_grads_f32, _, _ = one_process_steps(seed, raw, spec, 1, dtype=torch.float32)
+    _, sw_grads_f32, _, _ = one_process_steps(seed, raw, spec, 1, dtype=torch.float32, swap=True)
+    torch.cuda.empty_cache()
+
+    work = Path(tmp) / 'dp'
+    work.mkdir()
+    env = dict(os.environ, WORLD_SIZE=str(DP_RANKS), MASTER_ADDR='127.0.0.1',
+               MASTER_PORT=str(free_port()))
+    procs, logs = [], []
+    t0 = time.time()
+    for r in range(DP_RANKS):
+        logs.append(work / f'rank{r}.log')
+        with open(logs[-1], 'wb') as log:        # files, not pipes: a full pipe blocks a rank
+            procs.append(subprocess.Popen(
+                [sys.executable, '-c', f'import sys; import chip_smoke; '
+                 f'sys.exit(chip_smoke.dp_rank({str(work)!r}, {seed}))'],
+                cwd=REPO, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=log,
+                stderr=subprocess.STDOUT))
+    wait_ranks(procs, logs, DP_TIMEOUT_S)
+    ranks_s = time.time() - t0
+    res = [json.loads((work / f'rank{r}.json').read_text()) for r in range(DP_RANKS)]
+
+    # (b) every rank built and loaded the same library at once
+    check(len({r['library'] for r in res}) == 1, f"dp: libraries {[r['library'] for r in res]}")
+    # the implicit step: the ranks' losses are the global batch's, equal on
+    # every rank, and the one process's within the gate
+    losses = [r['implicit']['losses'] for r in res]
+    check(all(l == losses[0] for l in losses), f'dp: the ranks report other losses: {losses}')
+    loss_rel = lambda got: [abs(a - b) / abs(b) for a, b in zip(got, ref_losses)]
+    moves = {n: p - start[n] for n, p in ref.items()}
+    update_rel = lambda got: dict_rel_l2({n: p - start[n] for n, p in got.items()}, moves)
+    grad_rel = dict_rel_l2(torch.load(work / 'grads_implicit.pt'), ref_grads)
+    grad_rel_f32 = dict_rel_l2(torch.load(work / 'grads_f32.pt'), ref_grads_f32)
+    sync = [torch.load(work / f'stats_implicit{r}.pt') for r in range(DP_RANKS)]
+    local = [torch.load(work / f'stats_explicit{r}.pt') for r in range(DP_RANKS)]
+    out = dict(global_batch=DP_GLOBAL_BATCH, ranks=DP_RANKS, ranks_s=ranks_s,
+               build_s=[r['build_s'] for r in res], losses=losses[0], one_process_losses=ref_losses,
+               loss_rel=loss_rel(losses[0]), loss_rel_halves_swapped=loss_rel(sw_losses),
+               step1_grad_rel_l2=grad_rel,
+               step1_grad_rel_l2_halves_swapped=dict_rel_l2(sw_grads, ref_grads),
+               f32_step1_grad_rel_l2=grad_rel_f32,
+               f32_step1_grad_rel_l2_halves_swapped=dict_rel_l2(sw_grads_f32, ref_grads_f32),
+               update_rel_l2=update_rel(torch.load(work / 'implicit_params.pt')),
+               update_rel_l2_halves_swapped=update_rel(sw),
+               sync_stats_equal_across_ranks=bool(torch.equal(sync[0], sync[1])),
+               local_stats_rel_across_ranks=float((local[0] - local[1]).norm() / local[1].norm()),
+               local_vs_sync_stats_rel=float((local[0] - sync[0]).norm() / sync[0].norm()))
+    for r in res:
+        for what in ('implicit', 'explicit', 'f32'):
+            print(f"dp rank {r['rank']} {what}: step ms p50 {r[what]['step_ms_p50']:.2f} "
+                  f"(steps {[round(t, 2) for t in r[what]['step_ms']]}), global "
+                  f"{r[what]['global_images_per_s']:.1f} img/s, peak "
+                  f"{r[what]['max_memory_allocated_gib']:.2f} GiB, launches {r[what]['launches']}",
+                  flush=True)
+    print(f'dp {DP_RANKS} ranks (gloo, one card): ' + json.dumps(out) +
+          f' (gates: loss {TOL_DP_LOSS}, update {TOL_DP_UPDATE}, f32 step-1 gradients '
+          f'{TOL_DP_GRAD_F32})', flush=True)
+    check(max(out['loss_rel']) <= TOL_DP_LOSS, f"dp: losses against one process {out['loss_rel']}")
+    check(grad_rel_f32 <= TOL_DP_GRAD_F32,
+          f'dp: f32 step-1 gradients against one process {grad_rel_f32:.3e}')
+    check(out['update_rel_l2'] <= TOL_DP_UPDATE,
+          f"dp: update against one process {out['update_rel_l2']:.3e}")
+    check(out['sync_stats_equal_across_ranks'], 'dp: synced statistics differ across ranks')
+    check(out['local_stats_rel_across_ranks'] > 0 and out['local_vs_sync_stats_rel'] > 0,
+          f'dp: per-replica statistics equal to the synced or across ranks: {out}')
+
+    # (c) the trainer on the ranks: one checkpoint written, the resume exact
+    for r in res:
+        first, resumed = r['trainer']
+        check([h['epoch'] for h in first['history']] == [1]
+              and [h['epoch'] for h in resumed['history']] == [2],
+              f"dp rank {r['rank']} trainer: epochs {first['history']}, {resumed['history']}")
+        check(r['written'] == ['best', 'checkpoint_1'] or r['written'] == ['checkpoint_1'],
+              f"dp rank {r['rank']} trainer: written {r['written']}")
+        res_ = resumed['resumed']
+        check(res_['model_equal'] and res_['optimizer_equal'] and res_['step'] == first['steps']
+              and res_['start_epoch'] == 1, f"dp rank {r['rank']} trainer resume: {res_}")
+        for run in (first, resumed):
+            steps, vb = run['steps'], run['val_batches']
+            check(steps == DP_TRAINER_STEPS, f"dp rank {r['rank']} trainer: {steps} steps")
+            c = run['counts'][0]
+            expect_counts(c['train'], f"dp rank {r['rank']} trainer train",
+                          **{k: v * steps for k, v in TRAIN_LAUNCHES.items()})
+            expect_counts(c['val'], f"dp rank {r['rank']} trainer val",
+                          **{k: v * vb for k, v in eval_launches().items()})
+        h = first['history'][0]
+        print(f"dp rank {r['rank']} trainer: epoch 1 {h['seconds']:.2f} s, train "
+              f"{h['images_per_s']:.1f} img/s (every rank's rows), loss {h['train_loss']:.5f}, val "
+              f"{h['val_loss']:.5f} / {h['val_acc']:.4f}; written {r['written']}; resumed at step "
+              f"{res_['step']}, tensors equal to the file", flush=True)
+        total = {}
+        for what in ('implicit', 'explicit', 'f32'):
+            for k, v in r[what]['launches'].items():
+                total[k] = total.get(k, 0) + v
+        for run in r['trainer']:
+            for c in run['counts']:
+                for k in c['train']:
+                    total[k] += c['train'][k] + c['val'][k]
+        paths[f"dp_rank{r['rank']}"] = total
+    out['trainer'] = [dict(written=r['written'], history=r['trainer'][0]['history']) for r in res]
+    return out
+
+
 def profile_block(fn, what: str, unprofiled_ms: float, top: int = 14) -> None:
     """torch.profiler over one call of fn: wall time, device busy time and
     idle share (against the profiled wall, and against `unprofiled_ms`, the
@@ -2718,8 +3142,18 @@ def main(argv=None) -> int:
     # readers, both pipelines, whole-image canvases, the official metrics
     with tempfile.TemporaryDirectory() as tmp:
         host = host_data_phase(tmp, args.seed, paths, card)
+    torch.cuda.empty_cache()
 
-    # 18. the kernels, with their launches on the main paths
+    # 18. data parallelism: DDP over NCCL at world size 1, two ranks on this
+    # card over gloo against one process, the trainer CLI on the two ranks
+    raw, spec = train_data(TRAIN_BATCH)
+    dp_world1 = dp_world1_phase(args.seed, raw, spec, paths)
+    del raw
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = dp_ranks_phase(args.seed, paths, tmp)
+
+    # 19. the kernels, with their launches on the main paths
     for r in rows:
         r['launches'] = sum(p[r['name']] for p in paths.values())
         r['launches_by_path'] = {k: p[r['name']] for k, p in paths.items()}
@@ -2761,6 +3195,11 @@ def main(argv=None) -> int:
           f"export, {mspn_export['load_s']:.1f} s to load, {mspn_export['size_mb']:.1f} MB, "
           f"batch-{BATCH} p50 {mspn_export['program_batch_ms_p50']:.2f} ms (in process "
           f"{mspn_export['fn_batch_ms_p50']:.2f})", flush=True)
+    print(f"card: {card}; data parallel: DDP at world size 1 (NCCL) step p50 "
+          f"{dp_world1['ddp_step_ms_p50']:.2f} ms against {dp_world1['plain_step_ms_p50']:.2f} ms "
+          f"in one process (batch {TRAIN_BATCH}); {DP_RANKS} ranks on this card (gloo), global "
+          f"batch {DP_GLOBAL_BATCH}: losses {dp['losses']} against {dp['one_process_losses']}, "
+          f"update rel L2 {dp['update_rel_l2']:.3e}, ranks' run {dp['ranks_s']:.1f} s", flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.time() - t_start:.1f} s', flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

@@ -23,6 +23,9 @@ samples when set) and updates the running averages.
 kept, and the backward runs its forward again
 (`torch.utils.checkpoint`, non-reentrant). That second forward moves no
 running average (`norm.running_stats_frozen`), so they move once a step.
+With cross-rank BatchNorm (`bn_axis_name='data'`) it issues the
+statistics' all-reduces again, inside the backward; every rank runs the
+same graph, so every rank issues them in the same order.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.models.modules import (
     Bottleneck, Conv, Hourglass, ResidualChain, max_pool)
 from hourglass_pose_estimation_torch.models.norm import (
-    BatchNorm, running_stats_frozen)
+    BatchNorm, running_stats_frozen, sync_batch_norm)
 
 
 class HourglassNet(nn.Module):
@@ -114,15 +117,13 @@ class HourglassNet(nn.Module):
 def hg(device='cuda', **kwargs) -> HourglassNet:
     """Factory with the JAX package's kwarg surface (`hg(**kwargs)`),
     built on `device` in channels-last memory format. Accepts and ignores
-    `out_res` like the reference factory. `bn_axis_name` (cross-device
-    BatchNorm) must stay None until the parallel slice."""
+    `out_res` like the reference factory. `bn_axis_name='data'` syncs the
+    train-mode BatchNorm statistics over the data-parallel process group
+    (`norm.sync_batch_norm`)."""
     if kwargs.get('up_channel_num', 256) != 256:
         raise ValueError('arch=hg does not support up_channel_num '
                          '(MSPN decoder width); got '
                          f"{kwargs['up_channel_num']!r}")
-    if kwargs.get('bn_axis_name') is not None:
-        raise NotImplementedError('hg(bn_axis_name=...) is not ported yet: '
-                                  'ROADMAP Queue 1 item 13')
     dev = resolve_device(device)
     model = HourglassNet(
         num_stacks=kwargs['num_stacks'],
@@ -136,6 +137,7 @@ def hg(device='cuda', **kwargs) -> HourglassNet:
         fuse_block=kwargs.get('fuse_block', False),
         bn_stat_samples=kwargs.get('bn_stat_samples', 0),
         remat=kwargs.get('remat', False))
+    sync_batch_norm(model, kwargs.get('bn_axis_name'))
     return model.to(dev, memory_format=torch.channels_last).eval()
 
 

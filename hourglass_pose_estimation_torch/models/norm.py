@@ -13,8 +13,22 @@ variance in one pass as max(E[x^2] - E[x]^2, 0); False takes the
 two-pass E[(x - mean)^2].
 
 Not `torch.nn.BatchNorm2d`: its running update uses the unbiased
-variance, and it has no sampled statistics. Cross-device statistics
-(`axis_name`) come with the parallel slice.
+variance, and it has no sampled statistics.
+
+Cross-rank statistics (`axis_name='data'`, set on a built model by
+`sync_batch_norm`; flax's `axis_name`): a train-mode forward averages the
+one-pass (mean, E[x^2]) over the data-parallel process group (the default
+group: data parallelism is the port's only axis) before it forms the
+variance, as `jax.lax.pmean` does in the JAX BatchNorm, so every rank
+normalises with, and moves its running averages by, the global batch's
+statistics. The average is differentiable: its backward is the transpose
+of a pmean, a SUM all-reduce of the cotangents divided by the world size.
+With `stat_samples=k` each rank takes its own first k samples before the
+average, as the JAX explicit (shard_map) path does; the JAX implicit (jit)
+path slices the global batch instead, so there the statistics come from
+the first k samples of rank 0's rows. The port's two data-parallel paths
+both take the explicit path's rule. At world size 1, or with no process
+group, the forward is the unsynced one. Eval mode never communicates.
 
 `update_stats = False` (see `running_stats_frozen`) keeps the running
 averages as they are in train mode: a rematerialised forward recomputes
@@ -27,7 +41,36 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+# the port's one mesh axis: data parallelism over the default process group
+DATA_AXIS = 'data'
+
+
+def _data_world_size() -> int:
+    """Ranks of the data-parallel group: the default process group's size,
+    1 when there is none."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+class _MeanOverRanks(torch.autograd.Function):
+    """pmean over the data group: SUM all-reduce / world, and the same in
+    the backward (the transpose of a pmean)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.contiguous().clone()
+        dist.all_reduce(y)
+        return y / dist.get_world_size()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g)
+        return g / dist.get_world_size()
 
 
 class BatchNorm(nn.Module):
@@ -47,6 +90,15 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
         self.update_stats = True
+        self.axis_name = None
+
+    def set_axis_name(self, axis_name) -> None:
+        """Sync the train-mode statistics over `axis_name` ('data'), or not
+        (None)."""
+        if axis_name not in (None, DATA_AXIS):
+            raise ValueError(f'axis_name={axis_name!r}: the port has one mesh axis, '
+                             f'{DATA_AXIS!r} (data parallelism)')
+        self.axis_name = axis_name
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         sdt = torch.promote_types(torch.float32, x.dtype)
@@ -57,7 +109,13 @@ class BatchNorm(nn.Module):
             axes = (0, 2, 3)
             mean = xs.mean(dim=axes)
             if self.fast_variance:
-                var = torch.clamp_min(xs.square().mean(dim=axes) - mean.square(), 0.0)
+                mean2 = xs.square().mean(dim=axes)
+                if self.axis_name is not None and _data_world_size() > 1:
+                    mean, mean2 = _MeanOverRanks.apply(torch.stack([mean, mean2]))
+                var = torch.clamp_min(mean2 - mean.square(), 0.0)
+            elif self.axis_name is not None:
+                raise ValueError('fast_variance=False is a single-shard numerical-parity '
+                                 'mode; axis_name sync needs the one-pass form')
             else:
                 var = (xs - mean.view(shape)).square().mean(dim=axes)
             if self.update_stats:
@@ -88,3 +146,13 @@ def running_stats_frozen(module: nn.Module, frozen: bool = True):
     finally:
         for m, v in zip(bns, saved):
             m.update_stats = v
+
+
+def sync_batch_norm(module: nn.Module, axis_name=DATA_AXIS) -> nn.Module:
+    """Set `axis_name` on every BatchNorm under `module` (None: no sync):
+    the one switch of global-batch statistics that both data-parallel
+    paths and `hg(bn_axis_name=...)` use, for any architecture."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.set_axis_name(axis_name)
+    return module

@@ -110,7 +110,11 @@ def build() -> tuple:
         if link.returncode != 0:
             raise RuntimeError(f'nvcc link failed:\n{link.stdout}')
         text = '\n'.join(log)
-        log_path.write_text(text)
+        # several processes may build at once (ranks on one card): each
+        # renames its own finished files into place, the log first
+        tmp_log = os.path.join(tmp, log_path.name)
+        Path(tmp_log).write_text(text)
+        os.replace(tmp_log, log_path)
         os.replace(tmp_so, so)
     return so, text
 

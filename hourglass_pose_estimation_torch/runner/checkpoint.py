@@ -6,6 +6,10 @@ optimizer state, `step`, `epoch` and `best_acc`, as one `torch.save` file of
 tensors and plain numbers, read back with `torch.load(weights_only=True)`
 (no pickled objects). A save writes a temporary file beside the target and
 renames it over the target, so a crash leaves the last snapshot whole.
+
+Under data parallelism (a process group) rank 0 writes, then every rank
+meets at a barrier, so no rank goes on to read a checkpoint that is not
+whole; every rank restores from the file.
 """
 
 from __future__ import annotations
@@ -14,19 +18,28 @@ import os
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
 
 from hourglass_pose_estimation_torch.runner.train_state import TrainState
 
 
 def save(path: str, state: TrainState, epoch: int, best_acc: float) -> None:
-    """Save state + metadata as the file `path`."""
-    payload = {
-        'model': state.model.state_dict(),
-        'optimizer': state.optimizer.state_dict(),
-        'step': int(state.step),
-        'epoch': int(epoch),
-        'best_acc': float(best_acc),
-    }
+    """Save state + metadata as the file `path` (rank 0's, then a barrier
+    of every rank, under a process group)."""
+    distributed = dist.is_available() and dist.is_initialized()
+    if not distributed or dist.get_rank() == 0:
+        _write(path, {
+            'model': state.model.state_dict(),
+            'optimizer': state.optimizer.state_dict(),
+            'step': int(state.step),
+            'epoch': int(epoch),
+            'best_acc': float(best_acc),
+        })
+    if distributed:
+        dist.barrier()
+
+
+def _write(path: str, payload: dict) -> None:
     path = os.path.abspath(path)
     tmp = f'{path}.tmp{os.getpid()}'
     try:

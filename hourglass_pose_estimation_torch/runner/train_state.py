@@ -15,20 +15,38 @@ on, for each epoch of `schedule_epochs`.
 The per-step augmentation generator is seeded from (base seed, step), as
 the JAX step folds the step into its key, so two runs from one seed draw
 the same augmentations. The state is updated in place and returned.
+
+Data parallelism (`mesh`, from `parallel.make_mesh`, with a process
+group): the train step wraps the model in `DistributedDataParallel`, the
+implicit path of the JAX package's jit over a sharded batch. Each rank
+draws the GLOBAL batch's augmentations from the one step generator and
+keeps its rows' slice, so the ranks together take the draws one process
+would take on the global batch; the model's BatchNorms sync their
+statistics (`norm.sync_batch_norm`, which the Trainer sets), DDP averages
+the gradients, and the loss and PCK (from hit and valid counts summed over
+the ranks) are the global batch's. The JAX step computes exactly that, so
+the ranks' step equals the one-process step on the global batch up to
+the order of the sums. DDP keeps its buffers as they are
+(`broadcast_buffers=False`): synced statistics are the same on every rank.
+The eval step also returns its sums (`loss_sum`, `n`, `hit`, `joints`),
+which the Trainer all-reduces.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+import inspect
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hourglass_pose_estimation_torch.data.pipeline import (
     augment_batch, sample_augmentations, to_device)
 from hourglass_pose_estimation_torch.loss import heatmap_mse_loss
-from hourglass_pose_estimation_torch.utils.evaluation import accuracy
+from hourglass_pose_estimation_torch.utils.evaluation import (
+    combine_pck_counts, pck_counts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +81,9 @@ class TrainState:
     tx: RMSpropSchedule
     optimizer: torch.optim.Optimizer
     step: int = 0
+    # the DistributedDataParallel wrapper of `model` that the data-parallel
+    # steps share, made at its first step
+    ddp: Any = None
 
 
 def init_state(model: torch.nn.Module, tx: RMSpropSchedule) -> TrainState:
@@ -71,9 +92,12 @@ def init_state(model: torch.nn.Module, tx: RMSpropSchedule) -> TrainState:
                       optimizer=tx.build(list(model.parameters())))
 
 
-def step_generator(rng: int, step: int, device) -> torch.Generator:
-    """The augmentation generator of step `step` under base seed `rng`."""
-    seed = np.random.SeedSequence((int(rng), int(step))).generate_state(1, np.uint64)[0]
+def step_generator(rng: int, step: int, device, rank=None) -> torch.Generator:
+    """The augmentation generator of step `step` under base seed `rng`; with
+    `rank`, that rank's own stream (the explicit step's, as the JAX one
+    folds the shard index into its key before the step)."""
+    key = (int(rng), int(step)) if rank is None else (int(rng), int(rank), int(step))
+    seed = np.random.SeedSequence(key).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
@@ -88,8 +112,49 @@ def _select_subset(target, tw, subset):
     return target[..., idx], tw[:, idx]
 
 
+def _global_draws(spec, rng: int, step: int, scales: torch.Tensor, mesh):
+    """This rank's rows of the global batch's draws from the step's
+    generator (all of them without a mesh)."""
+    world, rank = (mesh.world, mesh.rank) if mesh is not None else (1, 0)
+    b = scales.shape[0]
+    scales_a, rots, flips = sample_augmentations(
+        step_generator(rng, step, scales.device), scales.repeat(world, 1),
+        scale_factor=spec.scale_factor, rot_factor=spec.rot_factor, train=True)
+    rows = slice(rank * b, (rank + 1) * b)
+    return scales_a[rows], rots[rows], flips[rows]
+
+
+def step_metrics(loss: torch.Tensor, heatmaps: torch.Tensor, target: torch.Tensor,
+                 pck_thr: float, mesh=None) -> dict:
+    """{'loss', 'acc'} of a step: with a process group, the mean of the
+    ranks' losses and the PCK of the hit and valid counts summed over the
+    ranks (one all-reduce), the global batch's."""
+    hit, nv = pck_counts(heatmaps, target, thr=pck_thr)
+    if mesh is None or mesh.group is None:
+        return {'loss': loss.detach(), 'acc': combine_pck_counts(hit, nv)[0]}
+    v = torch.cat([loss.detach().reshape(1).double(), hit.double(), nv.double()])
+    dist.all_reduce(v, group=mesh.group)
+    J = hit.numel()
+    acc = combine_pck_counts(v[1:1 + J].float(), v[1 + J:].float())[0]
+    return {'loss': (v[0] / mesh.world).to(loss.dtype), 'acc': acc}
+
+
+def _replica(state: TrainState, mesh):
+    """The state's DistributedDataParallel wrapper over the mesh's group."""
+    if state.ddp is None or state.ddp.module is not state.model:
+        from torch.nn.parallel import DistributedDataParallel as DDP
+        dev = mesh.device
+        # no buffer sync before each forward (forward_sync_buffers since
+        # PyTorch 2.13, broadcast_buffers before)
+        keep = ('forward_sync_buffers' if 'forward_sync_buffers'
+                in inspect.signature(DDP).parameters else 'broadcast_buffers')
+        state.ddp = DDP(state.model, device_ids=[dev.index] if dev.type == 'cuda' else None,
+                        process_group=mesh.group, **{keep: False})
+    return state.ddp
+
+
 def make_train_step(spec, *, subset=None, pck_thr=0.5, device_pipeline=True,
-                    freeze_bn=False):
+                    freeze_bn=False, mesh=None):
     """The train step.
 
       device pipeline: (state, raw_batch, rng) -> (state, metrics), with
@@ -100,20 +165,21 @@ def make_train_step(spec, *, subset=None, pck_thr=0.5, device_pipeline=True,
     metrics = {'loss', 'acc'} as 0-d tensors on the device.
     freeze_bn=True normalises with the running BatchNorm averages (the
     model's eval-mode forward, so fused bottlenecks run there) and leaves
-    them unchanged; the parameters still train."""
+    them unchanged; the parameters still train. With a `mesh` whose process
+    group is initialized, the batch is this rank's rows of the global batch
+    and the step is data-parallel (DDP, see the module docstring)."""
     subset_t = tuple(subset) if subset is not None else None
+    distributed = mesh is not None and mesh.group is not None
 
     def train_step(state: TrainState, batch, rng):
         dev = _device_of(state)
         data = to_device(batch, dev)
         if device_pipeline:
-            draws = sample_augmentations(
-                step_generator(rng, state.step, dev), data['scale'],
-                scale_factor=spec.scale_factor, rot_factor=spec.rot_factor,
-                train=True)
-            data = augment_batch(data, draws, spec, True)
+            data = augment_batch(data, _global_draws(spec, rng, state.step, data['scale'], mesh),
+                                 spec, True)
         target, tw = _select_subset(data['target'], data['target_weight'], subset_t)
-        outs = state.model(data['image'], train=not freeze_bn)
+        model = _replica(state, mesh) if distributed else state.model
+        outs = model(data['image'], train=not freeze_bn)
         loss = heatmap_mse_loss(outs, target, tw)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -121,18 +187,20 @@ def make_train_step(spec, *, subset=None, pck_thr=0.5, device_pipeline=True,
             group['lr'] = state.tx.lr(state.step)
         state.optimizer.step()
         with torch.no_grad():
-            acc, _, _ = accuracy(outs[-1], target, thr=pck_thr)
+            metrics = step_metrics(loss, outs[-1], target, pck_thr, mesh)
         state.step += 1
-        return state, {'loss': loss.detach(), 'acc': acc}
+        return state, metrics
 
     return train_step
 
 
 def make_eval_step(spec, *, subset=None, pck_thr=0.5, device_pipeline=True):
     """Eval step: (state, batch, valid [B]) -> {'loss', 'acc', 'per_joint',
-    'n'}; forward with the running BN averages, no state change. `valid`
-    masks padded tail samples out (weights and targets zeroed) and the
-    loss is rescaled by B/n to a mean over the valid samples."""
+    'n', 'loss_sum', 'hit', 'joints'}; forward with the running BN averages,
+    no state change. `valid` masks padded tail samples out (weights and
+    targets zeroed) and the loss is rescaled by B/n to a mean over the
+    valid samples. The sums, `loss_sum` (loss * n) and the per-joint PCK
+    hit and valid counts, are what ranks all-reduce."""
     subset_t = tuple(subset) if subset is not None else None
 
     @torch.no_grad()
@@ -152,8 +220,9 @@ def make_eval_step(spec, *, subset=None, pck_thr=0.5, device_pipeline=True):
         outs = state.model(data['image'], train=False)
         n = valid.sum().clamp_min(1.0)
         loss = heatmap_mse_loss(outs, target, tw) * (data['image'].shape[0] / n)
-        acc, per_joint, _ = accuracy(outs[-1], target, thr=pck_thr)
-        return {'loss': loss, 'acc': acc, 'per_joint': per_joint,
-                'n': valid.sum()}
+        hit, joints = pck_counts(outs[-1], target, thr=pck_thr)
+        acc, per_joint, _ = combine_pck_counts(hit, joints)
+        return {'loss': loss, 'acc': acc, 'per_joint': per_joint, 'n': valid.sum(),
+                'loss_sum': loss.double() * valid.sum(), 'hit': hit, 'joints': joints}
 
     return eval_step

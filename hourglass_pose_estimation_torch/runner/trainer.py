@@ -1,6 +1,6 @@
 """Trainer: config-driven training loop with checkpoints and TB logs.
 
-Port of `hourglass_pose_estimation_tpu/runner/trainer.py` for one card:
+Port of `hourglass_pose_estimation_tpu/runner/trainer.py`:
 RMSprop with the step decay, per-epoch train and validation with loss and
 PCK, TensorBoard scalars (Loss|Accuracy x train|val, when tensorboardX
 imports), a snapshot every `COMMON.snapshot` epochs and `best` on improved
@@ -27,9 +27,22 @@ memory to the next copy while the step still reads it. Step metrics stay on the 
 the epoch ends: one host fetch per epoch.
 
 The JAX package's documented deviations hold here too: `TRAIN.epochs`
-epochs (not epochs + 1). Several devices (data, tensor or pipeline
-parallelism, explicit collectives) are refused with the ROADMAP item that
-brings them.
+epochs (not epochs + 1).
+
+Data parallelism over the ranks of a process group (`torchrun`; see
+`parallel/`): `TRAIN.data_parallel` (0 = every rank) must match the world
+size; each rank loads its contiguous rows of every global batch
+(`Loader(shard=(rank, world))`, so TRAIN.train_batch and val_batch divide
+by the world size) and steps them: through DDP with global-batch
+BatchNorm (the default, implicit path), or through the explicit step
+(`TRAIN.explicit_collectives`, with `TRAIN.sync_bn` choosing global or
+per-replica BatchNorm statistics; it needs the device pipeline, and the
+frozen-BN phase runs on the implicit path only, as in JAX). The train
+metrics are the global batch's; validation all-reduces its sums and counts
+once a pass, the padded rows of the last batch masked out. Rank 0 logs
+(img/s counts every rank's rows) and writes the checkpoints; every rank
+restores them. Pipeline and tensor parallelism are refused with the
+ROADMAP items that bring them.
 """
 
 from __future__ import annotations
@@ -40,36 +53,43 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.config import Config
 from hourglass_pose_estimation_torch.data import (
     Loader, Prefetcher, get_dataset, make_spec, prepare_host_batch, resolve_num_classes,
     to_device)
 from hourglass_pose_estimation_torch.models import model_from_config
+from hourglass_pose_estimation_torch.models.norm import sync_batch_norm
+from hourglass_pose_estimation_torch.parallel.mesh import make_mesh
 from hourglass_pose_estimation_torch.runner import checkpoint as ckpt_lib
 from hourglass_pose_estimation_torch.runner.train_state import (
     init_state, make_eval_step, make_optimizer, make_train_step)
+from hourglass_pose_estimation_torch.utils.evaluation import combine_pck_counts
 from hourglass_pose_estimation_torch.utils.summary import count_params, summarize
 
 
 def refuse_unported(cfg: Config) -> None:
-    """Raise NotImplementedError for what this single-card trainer lacks."""
+    """Raise NotImplementedError for the parallelism not ported yet, and
+    ValueError for what the explicit step does not take."""
     tc = cfg.train
-    multi = [f'TRAIN.{k}={v}' for k, v, on in (
-        ('pipeline_parallel', tc.pipeline_parallel, tc.pipeline_parallel > 1),
-        ('explicit_collectives', tc.explicit_collectives, tc.explicit_collectives),
-        ('model_parallel', tc.model_parallel, tc.model_parallel > 1),
-        ('data_parallel', tc.data_parallel, tc.data_parallel > 1)) if on]
-    if multi:
-        raise NotImplementedError(
-            f"{', '.join(multi)}: training on several devices is not ported yet "
-            '(ROADMAP Queue 1 item 13); the port trains on one card')
+    for key, value, item, what in (
+            ('pipeline_parallel', tc.pipeline_parallel, '13b', 'pipeline parallelism'),
+            ('model_parallel', tc.model_parallel, '13c', 'tensor parallelism')):
+        if value > 1:
+            raise NotImplementedError(f'TRAIN.{key}={value}: {what} is not ported yet '
+                                      f'(ROADMAP Queue 1 item {item})')
+    if tc.explicit_collectives and not cfg.dataset.device_pipeline:
+        raise ValueError('TRAIN.explicit_collectives requires DATASET.device_pipeline=True')
+    if tc.explicit_collectives and tc.freeze_bn_after_epoch:
+        raise ValueError('TRAIN.freeze_bn_after_epoch is only supported on the '
+                         'implicit-collectives path')
 
 
 class Trainer:
     """Builds model, optimizer and datasets from a Config and trains on
-    `device` (the card unless device='cpu' is asked for)."""
+    `device` (the card unless device='cpu' is asked for; a CUDA device
+    without an index is the rank's current one)."""
 
     def __init__(self, cfg: Config, num_classes: Optional[int] = None,
                  verbose: bool = True, device='cuda', eval_only: bool = False):
@@ -77,8 +97,9 @@ class Trainer:
         exist on a machine that only evaluates): the val dataset stands in
         for the pipeline spec and the never-iterated train loader, and
         `train()` refuses to run."""
-        self.device = resolve_device(device)
         refuse_unported(cfg)
+        self.mesh = make_mesh(cfg.train.data_parallel, cfg.train.model_parallel, device)
+        self.device = self.mesh.device
         self.cfg = cfg
         self.verbose = verbose
         self.eval_only = eval_only
@@ -93,6 +114,11 @@ class Trainer:
                 mc, num_classes=self.num_classes, out_res=dc.out_res,
                 device=self.device, dtype=dtype, remat=tc.remat,
                 bn_stat_samples=tc.bn_stat_samples)
+        # global-batch statistics on the implicit path for any architecture
+        # (JAX's jit over a sharded batch computes them), and on the
+        # explicit one under TRAIN.sync_bn (JAX's bn_axis_name='data')
+        if self.mesh.group is not None and (not tc.explicit_collectives or tc.sync_bn):
+            sync_batch_norm(self.model)
 
         ds_kwargs = dict(image_path=dc.image_path,
                          annotation_path=dc.annotation_path,
@@ -103,10 +129,11 @@ class Trainer:
         self.train_ds = (self.val_ds if eval_only
                          else get_dataset(dc.name, True, **ds_kwargs))
         self.spec = make_spec(self.train_ds)
+        shard = (self.mesh.rank, self.mesh.world)
         self.train_loader = Loader(self.train_ds, tc.train_batch, shuffle=True,
-                                   seed=cfg.common.seed, drop_last=True)
+                                   seed=cfg.common.seed, drop_last=True, shard=shard)
         self.val_loader = Loader(self.val_ds, tc.val_batch, shuffle=False,
-                                 seed=cfg.common.seed, drop_last=False)
+                                 seed=cfg.common.seed, drop_last=False, shard=shard)
 
         steps_per_epoch = tc.steps_per_epoch or len(self.train_loader)
         self.steps_per_epoch = min(steps_per_epoch, len(self.train_loader))
@@ -114,7 +141,8 @@ class Trainer:
                                  self.steps_per_epoch)
         self.state = init_state(self.model, self.tx)
         self._log(f"==> model '{mc.arch}', stacks={mc.num_stacks}, "
-                  f'params={count_params(self.model):,}, device={self.device}')
+                  f'params={count_params(self.model):,}, device={self.device}, '
+                  f'mesh={self.mesh.shape}')
         if cfg.common.summary:
             self._log(summarize(self.model))
         self.start_epoch = 0
@@ -124,9 +152,16 @@ class Trainer:
         self.canvas = dc.canvas or max(dc.inp_res, 64)
         self.crop_aware = dc.canvas_mode == 'crop'
         self.device_pipeline = dc.device_pipeline
-        self.train_step = make_train_step(
-            self.spec, subset=mc.subset, pck_thr=cfg.common.pck,
-            device_pipeline=self.device_pipeline)
+        if tc.explicit_collectives:
+            from hourglass_pose_estimation_torch.parallel.shard_map_step import (
+                make_shard_map_train_step)
+            self.train_step = make_shard_map_train_step(
+                self.spec, self.mesh, subset=mc.subset, pck_thr=cfg.common.pck,
+                sync_bn=tc.sync_bn)
+        else:
+            self.train_step = make_train_step(
+                self.spec, subset=mc.subset, pck_thr=cfg.common.pck,
+                device_pipeline=self.device_pipeline, mesh=self.mesh)
         # late-training frozen BN: a second step whose forward uses the
         # running averages, built when first reached
         self.freeze_bn_after = tc.freeze_bn_after_epoch
@@ -170,7 +205,7 @@ class Trainer:
                       f'(epoch {self.start_epoch})')
 
     def _log(self, msg):
-        if self.verbose:
+        if self.verbose and self.mesh.rank == 0:
             print(msg, flush=True)
 
     def _stage(self, raw: dict):
@@ -235,7 +270,7 @@ class Trainer:
                 self._frozen_step = make_train_step(
                     self.spec, subset=self.cfg.model.subset,
                     pck_thr=self.cfg.common.pck, device_pipeline=self.device_pipeline,
-                    freeze_bn=True)
+                    freeze_bn=True, mesh=self.mesh)
                 self._log(f'=> BatchNorm frozen (running averages) from '
                           f'epoch {epoch + 1} on')
             step_fn = self._frozen_step
@@ -263,13 +298,17 @@ class Trainer:
         vals = torch.stack(step_metrics).cpu().numpy()      # ONE fetch
         dt = time.time() - t0
         loss, acc = float(vals[:, 0].mean()), float(vals[:, 1].mean())
+        n_img *= self.mesh.world            # every rank stepped its rows
         self._log(f'  train: loss {loss:.5f} | pck {acc:.4f} | '
                   f'{n_img / dt:.1f} img/s')
         return loss, acc, n_img / dt
 
     def _evaluate(self):
         """Validation over the whole split -> (loss, PCK), each batch
-        weighted by its valid samples (padded ones masked out)."""
+        weighted by its valid samples (padded ones masked out). A batch's
+        loss and PCK are the global batch's: its loss sums, sample counts
+        and per-joint hit and valid counts are summed over the ranks (one
+        all-reduce a pass)."""
         prefetch = Prefetcher(self.val_loader.epoch_indices(),
                               self._make_produce(self.val_ds, False, with_valid=True))
         rows = []
@@ -278,16 +317,25 @@ class Trainer:
                 batch = self._take(staged)
                 valid = batch.pop('valid')
                 m = self.eval_step(self.state, self._prepare(batch), valid)
-                rows.append(torch.stack([m['loss'], m['acc'], m['n']]))
+                rows.append(torch.cat([torch.stack([m['loss_sum'], m['n'].double()]),
+                                       m['hit'].double(), m['joints'].double()]))
         finally:
             prefetch.close()
         if not rows:
             return 0.0, 0.0
-        vals = torch.stack(rows).cpu().numpy()              # ONE fetch
-        n = vals[:, 2]
+        sums = torch.stack(rows)
+        if self.mesh.group is not None:
+            dist.all_reduce(sums, group=self.mesh.group)
+        sums = sums.cpu()                                   # ONE fetch
+        # each global batch's loss and PCK in f32, weighted by its valid
+        # samples: in one process, the eval step's own f32 numbers
+        n = sums[:, 1].float().numpy()
+        loss = (sums[:, 0] / sums[:, 1].clamp_min(1.0)).float().numpy()
+        J = (sums.shape[1] - 2) // 2
+        acc = np.array([combine_pck_counts(s[2:2 + J].float(), s[2 + J:].float())[0]
+                        for s in sums], np.float32)
         tot = max(n.sum(), 1.0)
-        return (float((vals[:, 0] * n).sum() / tot),
-                float((vals[:, 1] * n).sum() / tot))
+        return float((loss * n).sum() / tot), float((acc * n).sum() / tot)
 
     # ------------------------------------------------------------------
     def _open_writer(self):
@@ -305,7 +353,7 @@ class Trainer:
                                '(no train split loaded)')
         cfg = self.cfg
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        if self.writer is None:
+        if self.writer is None and self.mesh.rank == 0:
             self.writer = self._open_writer()
         # one augmentation seed per epoch, split off a stream from seed + 1;
         # the train step folds the step in (train_state.step_generator)

@@ -32,6 +32,9 @@ HOST_DATA = {f'hourglass_pose_estimation_torch.data.{m}' for m in (
 # and draws frames)
 SERVING_TOOLS = {f'hourglass_pose_estimation_torch.{m}' for m in (
     'export', 'export.__main__', 'serving', 'serve_http', 'serving_demo', 'utils.summary')}
+# data parallelism over processes
+PARALLEL = {f'hourglass_pose_estimation_torch.parallel{m}' for m in (
+    '', '.mesh', '.multihost', '.shard_map_step')}
 
 # the reference torch model's counts (num_blocks=1, num_classes=16, sum)
 REFERENCE_COUNTS = {
@@ -75,11 +78,12 @@ def test_importing_the_port_loads_no_cv2():
     assert r.returncode == 0, r.stdout + r.stderr
     assert ({'hourglass_pose_estimation_torch.interop',
              'hourglass_pose_estimation_torch.models.mspn'} | HOST_DATA | SERVING_TOOLS
-            <= set(_port_modules()))
+            | PARALLEL <= set(_port_modules()))
 
 
 def test_port_sources_import_no_jax():
-    files = list(PKG.rglob('*.py')) + [REPO / 'chip_smoke.py']
+    # the port, chip_smoke and the ranks the data-parallel tests start
+    files = list(PKG.rglob('*.py')) + [REPO / 'chip_smoke.py', REPO / 'tests' / 'torch_port_ranks.py']
     assert len(files) > 15
     assert {m.rsplit('.', 1)[-1] + '.py' for m in HOST_DATA} <= {f.name for f in files}
     bad = []

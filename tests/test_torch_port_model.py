@@ -22,6 +22,7 @@ from hourglass_pose_estimation_torch.export import (
     fold_batchnorm, make_inference_fn)
 from hourglass_pose_estimation_torch.models import HourglassNet, get_model
 from hourglass_pose_estimation_torch.models.modules import Bottleneck
+from hourglass_pose_estimation_torch.models.norm import BatchNorm
 from hourglass_pose_estimation_torch.weights import (
     load_jax_variables, to_jax_variables)
 
@@ -168,15 +169,18 @@ def test_fused_path_takes_only_bf16_models(monkeypatch, dtype):
 
 def test_train_mode_raises_until_the_training_slice():
     """Train mode is ported (it runs and moves the running statistics), and
-    so are remat (the trainer slice) and MSPN (its own slice); what waits
-    for later slices still raises: cross-device BN statistics."""
+    so are remat (the trainer slice), MSPN (its own slice) and cross-rank
+    BN statistics (`bn_axis_name='data'`, the parallel slice; the port has
+    no other axis)."""
     model = HourglassNet(num_stacks=1, num_classes=4, num_feats=16)
     before = model.bn1.running_var.clone()
     out = model(torch.rand(2, 64, 64, 3), train=True)
     assert out.shape == (1, 2, 16, 16, 4) and bool(torch.isfinite(out).all())
     assert not torch.equal(model.bn1.running_var, before)
     assert get_model('hg', device='cpu', num_stacks=1, num_classes=4, remat=True).remat
-    with pytest.raises(NotImplementedError, match='Queue 1'):
+    synced = get_model('hg', device='cpu', num_stacks=1, num_classes=4, bn_axis_name='data')
+    assert {m.axis_name for m in synced.modules() if isinstance(m, BatchNorm)} == {'data'}
+    with pytest.raises(ValueError, match="'data'"):
         get_model('hg', device='cpu', num_stacks=1, num_classes=4, bn_axis_name='batch')
     from hourglass_pose_estimation_torch.models import MSPN
     mspn = get_model('mspn', device='cpu', num_stacks=1, num_classes=4)

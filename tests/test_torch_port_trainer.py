@@ -337,13 +337,31 @@ def test_cli_trains_on_the_cpu_when_asked(tmp_path, capsys):
     assert got.split() == ['loss'] + val.split()[2:3] + ['|', 'pck'] + val.split()[5:6], (got, val)
 
 
-@pytest.mark.parametrize('override,item', [
-    ('TRAIN.pipeline_parallel=2', 'item 13'), ('TRAIN.explicit_collectives=true', 'item 13'),
-    ('TRAIN.model_parallel=2', 'item 13'), ('TRAIN.data_parallel=2', 'item 13')])
-def test_trainer_refuses_what_one_card_lacks(tmp_path, override, item):
+@pytest.mark.parametrize('override,error,match', [
+    pytest.param('TRAIN.pipeline_parallel=2', NotImplementedError, 'item 13b',
+                 id='TRAIN.pipeline_parallel=2-item 13'),
+    pytest.param('TRAIN.explicit_collectives=true', None, None,
+                 id='TRAIN.explicit_collectives=true-item 13'),
+    pytest.param('TRAIN.model_parallel=2', NotImplementedError, 'item 13c',
+                 id='TRAIN.model_parallel=2-item 13'),
+    pytest.param('TRAIN.data_parallel=2', ValueError, 'world size 1',
+                 id='TRAIN.data_parallel=2-item 13')])
+def test_trainer_refuses_what_one_card_lacks(tmp_path, override, error, match):
+    """In one process: pipeline and tensor parallelism wait for items 13b
+    and 13c; data_parallel=2 asks for more ranks than the world has; the
+    explicit-collectives step runs, at world size 1."""
     cfg = tconfig.load_config(raw=_raw_cfg(tmp_path), overrides=[override])
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(cfg, verbose=False, device='cpu')
+    if error is not None:
+        with pytest.raises(error, match=match):
+            Trainer(cfg, verbose=False, device='cpu')
+        return
+    cfg = tconfig.load_config(raw=_raw_cfg(tmp_path), overrides=[
+        override, 'TRAIN.epochs=1', 'TRAIN.freeze_bn_after_epoch=0', 'DATASET.inp_res=64',
+        'DATASET.out_res=16'])
+    t = Trainer(cfg, verbose=False, device='cpu')
+    assert (t.mesh.world, t.mesh.group) == (1, None)
+    t.train()
+    assert t.history[0]['epoch'] == 1 and all(np.isfinite(v) for v in t.history[0].values())
 
 
 @pytest.mark.parametrize('override', ['DATASET.device_pipeline=false', 'DATASET.name=mpii'])
