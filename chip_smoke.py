@@ -159,10 +159,32 @@ failure):
      data, rank 0 writing checkpoint_1, and a resume from it to epoch 2
      that restores every tensor exactly on both ranks; launches exact; a
      failed rank fails the run;
- 19. the `kernels` JSON line (launches summed over the main paths of
-     phases 4, 6-11, 12-14, 15, 16, 17 and 18, each rank's among them; the
-     pool backward that splits ties is on none of them), then the result
-     line.
+ 19. pipeline parallelism (`parallel/pipeline.py`): the flagship's 8
+     stacks split 4 + 4 over two ranks (stages) on this one card over gloo,
+     each hand-off staged through host memory, each rank a process of its
+     own that loads the library phase 2 built: (a) in f32 (TF32 off) at a
+     global batch of 8 in 2 microbatches, the eval-mode loss and gradients
+     against one process's HourglassNet with the same weights, and the
+     train-mode ones against one process's sequential oracle of the same
+     microbatch slices; (b) in bf16 at a global batch of 32 in 4
+     microbatches, 3 warm-up and 5 timed steps of the raw step (device
+     pipeline): every loss finite and equal on both stages, per stage step
+     ms p50, global img/s, the hand-off's host ms, peak memory and exact
+     launches (stage 0: 68 pool and 64 upsample launches a step, each
+     forward and backward; stage 1: 64 and 64; 1 render each); (c) the
+     trainer CLI with TRAIN.pipeline_parallel=2 TRAIN.microbatches=4, one
+     epoch of 4 steps at batch 32 (launches exact), validation through the
+     merged model (65/32/33 launches and 1 render a val batch), rank 0
+     alone writing checkpoint_1 in the standard layout, a pipeline resume
+     that restores every tensor exactly on both ranks, and `evaluate_only`
+     (EVAL.official) of checkpoint_1 on both ranks, reading the trainer's
+     validation of those weights. Two ranks on one card share its SMs and
+     pass each hand-off through host memory: its times are not two cards'
+     over NVLink;
+ 20. the `kernels` JSON line (launches summed over the main paths of
+     phases 4, 6-11, 12-14, 15, 16, 17, 18 and 19, each rank's among them;
+     the pool backward that splits ties is on none of them), then the
+     result line.
 --profile adds torch.profiler breakdowns (by kernel, by launching
 PyTorch op, by kind) of one serving batch and of one train step, each for
 the hourglass and for MSPN, and the serving front end's rate alone.
@@ -378,6 +400,37 @@ DP_TRAINER = ['DATASET.name=synthetic', 'DATASET.num_samples=128', 'TRAIN.epochs
 # collective's limit
 DP_TIMEOUT_S = 600
 DP_DEVICE = 'cuda:0'
+# the pipeline phase (19): the flagship's 8 stacks split 4 + 4 over two
+# ranks (stages) on this one card over gloo, every hand-off through host
+# memory. (a) parity in f32 (TF32 off): a global batch of 8 in 2
+# microbatches, the eval-mode (running averages) loss and gradients against
+# one process's HourglassNet with the same weights, and the train-mode ones
+# against one process's sequential oracle of the same microbatch slices
+# (loss relative; gradients relative L2 over the model). Read on an H100:
+# the losses 0 (eval) and 1.04e-7 (train), the gradients 2.08e-7 and
+# 2.40e-6; held at about 4x (the eval loss at the train loss's gate).
+PP_RANKS, PP_STACKS = 2, 8
+PP_PARITY_BATCH, PP_PARITY_M = 8, 2
+TOL_PP_LOSS = {'eval': 4e-7, 'train': 4e-7}
+TOL_PP_GRAD = {'eval': 8e-7, 'train': 1e-5}
+# (b) bf16 timing: global batch 32 in 4 microbatches of 8, the raw step
+# (device pipeline); per step and stage the launches: per microbatch stage
+# 0 runs the stem's pool and its 4 stacks' 16 pools and 16 merges, stage 1
+# its stacks', forward and backward, and each stage renders the targets
+PP_GLOBAL_BATCH, PP_M, PP_WARMUP, PP_TIMED = 32, 4, 3, 5
+PP_LAUNCHES = [dict(maxpool2x2_fwd=68, maxpool2x2_bwd_first=68, upsample2x_add=64,
+                    upsample2x_add_bwd=64, render_gaussian=1),
+               dict(maxpool2x2_fwd=64, maxpool2x2_bwd_first=64, upsample2x_add=64,
+                    upsample2x_add_bwd=64, render_gaussian=1)]
+# (c) the trainer CLI on the two stages: one epoch of 4 steps at batch 32,
+# validation of the merged model (4 batches, 16 rows a rank), a snapshot;
+# evaluate_only of it on both ranks (each the whole validation set, 4
+# batches of 32) against the trainer's validation of the same weights,
+# relative (loss) and absolute (PCK): read 0 on an H100 (bf16 forwards of
+# 32 rows against 16), held as the evaluator phase holds its own
+PP_TRAINER = DP_TRAINER + ['TRAIN.pipeline_parallel=2', f'TRAIN.microbatches={PP_M}']
+TOL_PP_EVALUATE_ONLY = TOL_EVALUATOR
+PP_TIMEOUT_S = 600
 
 def fail(msg: str) -> None:
     raise SystemExit(f'chip_smoke: FAIL: {msg}')
@@ -2875,6 +2928,281 @@ def dp_ranks_phase(seed: int, paths: dict, tmp: str) -> dict:
     return out
 
 
+def pipeline_counting_trainer(runs: list):
+    """`counting_trainer` for a pipeline Trainer: a resumed one compares its
+    gathered, merged state (a collective of the pipe group) with the
+    checkpoint's."""
+    import torch
+    base = counting_trainer(runs)
+
+    class PipelineCounting(base):
+        def _against_checkpoint(self, path: str) -> dict:
+            saved = torch.load(path, map_location='cpu', weights_only=True)
+            model, opt = self.state.checkpoint_state()
+
+            def equal(a, b):
+                if isinstance(a, dict):
+                    return a.keys() == b.keys() and all(equal(v, b[k]) for k, v in a.items())
+                if isinstance(a, list):
+                    return len(a) == len(b) and all(equal(x, y) for x, y in zip(a, b))
+                return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            return dict(start_epoch=self.start_epoch, step=self.state.step,
+                        saved_step=saved['step'], model_tensors=len(model),
+                        model_equal=equal(model, saved['model']),
+                        optimizer_tensors=sum(len(st) for o in opt.values()
+                                              for st in o['state'].values()),
+                        optimizer_equal=equal(opt, saved['optimizer']))
+
+    return PipelineCounting
+
+
+def pp_stage(seed: int, mesh, dtype=None):
+    """This rank's stage of the flagship: the stem and its stacks of the
+    standard init (flagship_model's), the model's own modules
+    (`pipeline.stage_of`, as the pipeline Trainer takes them)."""
+    from hourglass_pose_estimation_torch.parallel.pipeline import PipelineState, stage_of
+    from hourglass_pose_estimation_torch.runner import make_optimizer
+    model = flagship_model(seed, device=mesh.device, **({'dtype': dtype} if dtype else {}))
+    return PipelineState.create(*stage_of(model, mesh), make_optimizer(*DP_OPT), mesh,
+                                PP_STACKS)
+
+
+def pp_rank(work: str, seed: int) -> int:
+    """One of the PP_RANKS stages of the pipeline phase, in a process of its
+    own on cuda:0 over gloo, with the library phase 2 built (loaded, not
+    built again): (a) the f32 parity steps on the batch the parent saved,
+    (b) the bf16 timed steps, (c) the pipeline trainer CLI, its resume and
+    evaluate_only of its checkpoint_1. Writes `<work>/rank<r>.json` and
+    the parity gradients."""
+    import os
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    from hourglass_pose_estimation_torch.ops.hopper import _build
+    from hourglass_pose_estimation_torch.parallel import make_mesh, maybe_initialize_distributed
+    from hourglass_pose_estimation_torch.parallel.pipeline import (
+        make_pipeline_train_step, make_pipeline_train_step_raw)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(work)
+    rank = int(os.environ['RANK'])
+    t0 = time.time()
+    lib = _build.library()
+    out = dict(rank=rank, load_s=time.time() - t0, library=Path(lib._name).name)
+    maybe_initialize_distributed(DP_DEVICE, backend='gloo', timeout=PP_TIMEOUT_S, verbose=False)
+    mesh = make_mesh(0, 1, DP_DEVICE, pipeline_parallel=PP_RANKS)
+    out['stage'] = mesh.stage
+    cpu = lambda d: {k: v.detach().float().cpu() for k, v in d.items()}
+
+    # (a) parity, f32
+    batch = {k: v.to(mesh.device) for k, v in torch.load(work / 'batch.pt').items()}
+    state = pp_stage(seed, mesh, torch.float32)
+    for mode in ('eval', 'train'):
+        step = make_pipeline_train_step(mesh, num_microbatches=PP_PARITY_M,
+                                        train=mode == 'train', update=False)
+        _, m = step(state, batch['image'], batch['target'], batch['target_weight'])
+        out[f'{mode}_loss'] = float(m['loss'])
+        torch.save({'stem': cpu(m['g_stem']), 'stacks': [cpu(g) for g in m['g_stack']]},
+                   work / f'grads_{mode}{rank}.pt')
+    del state, batch
+    torch.cuda.empty_cache()
+
+    # (b) the timed bf16 steps, the main path's launches
+    raw, spec = train_data(PP_GLOBAL_BATCH)
+    state = pp_stage(seed, mesh)
+    step = make_pipeline_train_step_raw(spec, mesh, num_microbatches=PP_M)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, times, handoff = [], [], []
+    for _ in range(PP_WARMUP + PP_TIMED):
+        t0 = time.perf_counter()
+        state, m = step(state, raw, seed)
+        losses.append(float(m['loss']))
+        times.append(time.perf_counter() - t0)
+        handoff.append(m['handoff_s'])
+    counts = read_counts()
+    n = PP_WARMUP + PP_TIMED
+    expect_counts(counts, f'pp rank {rank}: {n} steps',
+                  **{k: v * n for k, v in PP_LAUNCHES[mesh.stage].items()})
+    check(all(abs(v) < float('inf') for v in losses), f'pp rank {rank}: losses {losses}')
+    timed = times[PP_WARMUP:]
+    out['timed'] = dict(losses=losses, step_ms=[t * 1e3 for t in times], step_ms_p50=p50(timed),
+                        global_images_per_s=PP_GLOBAL_BATCH / p50(timed) * 1e3,
+                        handoff_ms=[t * 1e3 for t in handoff],
+                        handoff_ms_p50=p50(handoff[PP_WARMUP:]),
+                        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        launches=counts)
+    del state
+    torch.cuda.empty_cache()
+
+    # (c) the trainer CLI, a pipeline resume, evaluate_only
+    runs, calls = [], []
+    argv = [str(REPO / 'configs' / 'train_mpii_8stack.yaml')] + PP_TRAINER + [
+        f'COMMON.checkpoint_dir={work / "trainer"}']
+    flags = ['--device', DP_DEVICE, '--backend', 'gloo']
+    trainer = pipeline_counting_trainer(runs)
+    out['trainer_s'] = run_main(argv + flags, f'pp rank {rank} trainer', Trainer=trainer)
+    ckpts = next((work / 'trainer').glob('*/ckpts'))
+    out['written'] = sorted(p.name for p in ckpts.iterdir())
+    resume = f'COMMON.resume={ckpts / "checkpoint_1"}'
+    out['resumed_s'] = run_main(argv + [resume] + flags, f'pp rank {rank} trainer, resumed',
+                                Trainer=trainer)
+    out['evaluate_only_s'] = run_main(
+        argv + ['COMMON.evaluate_only=true', 'EVAL.official=true', resume] + flags,
+        f'pp rank {rank} evaluate_only', Evaluator=counting_evaluator(calls))
+    out['evaluate_only'] = {c['what']: dict(counts=c['counts'], s=c['s'],
+                                            out=c['out'] if c['what'] == 'evaluate' else None)
+                            for c in calls}
+    out['trainer'] = [dict(history=r.history, counts=r.counts, resumed=r.resumed,
+                           steps=r.steps_per_epoch, val_batches=len(r.val_loader)) for r in runs]
+    (work / f'rank{rank}.json').write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def pp_ranks_phase(seed: int, paths: dict, tmp: str) -> dict:
+    """19. Pipeline parallelism: the flagship's 8 stacks over PP_RANKS
+    stages on this one card over gloo (`pp_rank`), against one process."""
+    import os
+    import torch
+    from hourglass_pose_estimation_torch.data import augment_batch, sample_augmentations, to_device
+    from hourglass_pose_estimation_torch.loss import heatmap_mse_loss
+    from hourglass_pose_estimation_torch.parallel.pipeline import merge_hourglass_variables
+    from hourglass_pose_estimation_torch.runner.train_state import step_generator
+    work = Path(tmp) / 'pp'
+    work.mkdir()
+    # (a) one process on the parity batch: HourglassNet in f32, the eval-mode
+    # loss and gradients, then the train-mode sequential oracle of the same
+    # microbatch slices
+    raw, spec = train_data(PP_PARITY_BATCH)
+    model = flagship_model(seed, dtype=torch.float32)
+    dev = next(model.parameters()).device
+    data = to_device(raw, dev)
+    data = augment_batch(data, sample_augmentations(
+        step_generator(seed, 0, dev), data['scale'], scale_factor=spec.scale_factor,
+        rot_factor=spec.rot_factor, train=True), spec, True)
+    batch = {k: data[k] for k in ('image', 'target', 'target_weight')}
+    torch.save({k: v.cpu() for k, v in batch.items()}, work / 'batch.pt')
+    ref = {}
+    mb = PP_PARITY_BATCH // PP_PARITY_M
+    for mode in ('eval', 'train'):
+        model.zero_grad(set_to_none=True)
+        if mode == 'eval':
+            loss = heatmap_mse_loss(model(batch['image'], train=False), batch['target'],
+                                    batch['target_weight'])
+        else:
+            loss = sum(heatmap_mse_loss(model(batch['image'][sl], train=True),
+                                        batch['target'][sl], batch['target_weight'][sl])
+                       for sl in (slice(m * mb, (m + 1) * mb) for m in range(PP_PARITY_M)))
+            loss = loss / PP_PARITY_M
+        loss.backward()
+        ref[mode] = (float(loss), grads_of(model))
+    del model, data, batch
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, WORLD_SIZE=str(PP_RANKS), MASTER_ADDR='127.0.0.1',
+               MASTER_PORT=str(free_port()))
+    procs, logs = [], []
+    t0 = time.time()
+    for r in range(PP_RANKS):
+        logs.append(work / f'rank{r}.log')
+        with open(logs[-1], 'wb') as log:        # files, not pipes: a full pipe blocks a rank
+            procs.append(subprocess.Popen(
+                [sys.executable, '-c', f'import sys; import chip_smoke; '
+                 f'sys.exit(chip_smoke.pp_rank({str(work)!r}, {seed}))'],
+                cwd=REPO, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=log,
+                stderr=subprocess.STDOUT))
+    wait_ranks(procs, logs, PP_TIMEOUT_S)
+    ranks_s = time.time() - t0
+    res = [json.loads((work / f'rank{r}.json').read_text()) for r in range(PP_RANKS)]
+    check([r['stage'] for r in res] == list(range(PP_RANKS)), 'pp: stages')
+    check(len({r['library'] for r in res}) == 1, f"pp: libraries {[r['library'] for r in res]}")
+
+    # (a) the stages' loss and merged gradients against one process's
+    parity = {}
+    for mode in ('eval', 'train'):
+        files = [torch.load(work / f'grads_{mode}{r}.pt') for r in range(PP_RANKS)]
+        merged = merge_hourglass_variables(
+            files[0]['stem'], [g for f in files for g in f['stacks']], PP_STACKS)
+        loss, grads = ref[mode]
+        losses = [r[f'{mode}_loss'] for r in res]
+        check(all(v == losses[0] for v in losses), f'pp {mode}: the ranks report {losses}')
+        parity[mode] = dict(loss=losses[0], one_process_loss=loss,
+                            loss_rel=abs(losses[0] - loss) / abs(loss),
+                            grad_rel_l2=dict_rel_l2(merged, grads),
+                            stem_grads_equal_across_ranks=all(
+                                torch.equal(files[0]['stem'][k], v)
+                                for k, v in files[1]['stem'].items()))
+    out = dict(ranks=PP_RANKS, stacks_per_stage=PP_STACKS // PP_RANKS, ranks_s=ranks_s,
+               load_s=[r['load_s'] for r in res], parity=parity)
+    print(f'pp {PP_RANKS} stages (gloo, one card), parity f32 at batch {PP_PARITY_BATCH} in '
+          f'{PP_PARITY_M} microbatches: ' + json.dumps(parity) +
+          f' (gates: loss {TOL_PP_LOSS}, gradients {TOL_PP_GRAD})', flush=True)
+    for mode, p in parity.items():
+        check(p['loss_rel'] <= TOL_PP_LOSS[mode], f"pp {mode}: loss rel {p['loss_rel']:.3e}")
+        check(p['grad_rel_l2'] <= TOL_PP_GRAD[mode],
+              f"pp {mode}: gradients rel L2 {p['grad_rel_l2']:.3e}")
+        check(p['stem_grads_equal_across_ranks'], f'pp {mode}: stem gradients differ')
+
+    # (b) the timed steps: the same losses on both stages, finite
+    losses = [r['timed']['losses'] for r in res]
+    check(all(l == losses[0] for l in losses), f'pp: the stages report other losses: {losses}')
+    out['timed'] = {r['stage']: {k: v for k, v in r['timed'].items() if k != 'launches'}
+                    for r in res}
+    for r in res:
+        t = r['timed']
+        print(f"pp stage {r['stage']} (bf16, global batch {PP_GLOBAL_BATCH}, {PP_M} "
+              f"microbatches): step ms p50 {t['step_ms_p50']:.2f} (steps "
+              f"{[round(v, 2) for v in t['step_ms']]}), global {t['global_images_per_s']:.1f} "
+              f"img/s, hand-off host ms p50 {t['handoff_ms_p50']:.2f}, peak "
+              f"{t['max_memory_allocated_gib']:.2f} GiB, launches {t['launches']} "
+              '(two ranks on one card: shared SMs, hand-offs through host memory)', flush=True)
+
+    # (c) the trainer: rank 0 alone writes, the standard layout, the resume
+    # exact, evaluate_only equal to the trainer's validation
+    ckpt = torch.load(next((work / 'trainer').glob('*/ckpts')) / 'checkpoint_1',
+                      map_location='cpu', weights_only=True)
+    names = set(flagship_model(seed, device='cpu').state_dict())
+    check(set(ckpt['model']) == names and set(ckpt['optimizer']) == {'stem', 'stack'},
+          'pp trainer: checkpoint_1 is not in the standard layout')
+    for r in res:
+        first, resumed = r['trainer']
+        check([h['epoch'] for h in first['history']] == [1] and resumed['history'] == [],
+              f"pp stage {r['stage']} trainer: epochs {first['history']}, {resumed['history']}")
+        check(r['written'] in (['best', 'checkpoint_1'], ['checkpoint_1']),
+              f"pp stage {r['stage']} trainer: written {r['written']}")
+        res_ = resumed['resumed']
+        check(res_['model_equal'] and res_['optimizer_equal'] and res_['step'] == first['steps']
+              and res_['start_epoch'] == 1, f"pp stage {r['stage']} trainer resume: {res_}")
+        c = first['counts'][0]
+        check(first['steps'] == DP_TRAINER_STEPS, f"pp stage {r['stage']}: {first['steps']} steps")
+        expect_counts(c['train'], f"pp stage {r['stage']} trainer train",
+                      **{k: v * first['steps'] for k, v in PP_LAUNCHES[r['stage']].items()})
+        expect_counts(c['val'], f"pp stage {r['stage']} trainer val",
+                      **{k: v * first['val_batches'] for k, v in eval_launches().items()})
+        h = first['history'][0]
+        ev = r['evaluate_only']
+        e_loss, e_acc = ev['evaluate']['out']
+        rel = dict(loss=abs(e_loss - h['val_loss']) / abs(h['val_loss']),
+                   pck=abs(e_acc - h['val_acc']))
+        print(f"pp stage {r['stage']} trainer: epoch 1 {h['seconds']:.2f} s, train "
+              f"{h['images_per_s']:.1f} img/s, loss {h['train_loss']:.5f}, val {h['val_loss']:.5f}"
+              f" / {h['val_acc']:.4f}; written {r['written']}; resumed at step {res_['step']}, "
+              f"tensors equal to the file; evaluate_only {e_loss:.5f} / {e_acc:.4f} (apart "
+              f"{rel}) in {r['evaluate_only_s']:.1f} s", flush=True)
+        check(rel['loss'] <= TOL_PP_EVALUATE_ONLY and rel['pck'] <= TOL_PP_EVALUATE_ONLY,
+              f"pp stage {r['stage']}: evaluate_only against the trainer's validation {rel}")
+        total = dict(r['timed']['launches'])
+        for k in total:
+            total[k] += c['train'][k] + c['val'][k] + sum(
+                e['counts'][k] for w, e in ev.items() if w != 'evaluate_official')
+        paths[f"pp_stage{r['stage']}"] = total
+    out['trainer'] = [dict(written=r['written'], history=r['trainer'][0]['history'],
+                           evaluate_only=r['evaluate_only']['evaluate']['out']) for r in res]
+    return out
+
+
 def profile_block(fn, what: str, unprofiled_ms: float, top: int = 14) -> None:
     """torch.profiler over one call of fn: wall time, device busy time and
     idle share (against the profiled wall, and against `unprofiled_ms`, the
@@ -3152,8 +3480,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         dp = dp_ranks_phase(args.seed, paths, tmp)
+    torch.cuda.empty_cache()
 
-    # 19. the kernels, with their launches on the main paths
+    # 19. pipeline parallelism: the flagship's stacks over two stages on this
+    # card over gloo, parity, timing, the trainer CLI and evaluate_only
+    with tempfile.TemporaryDirectory() as tmp:
+        pp = pp_ranks_phase(args.seed, paths, tmp)
+
+    # 20. the kernels, with their launches on the main paths
     for r in rows:
         r['launches'] = sum(p[r['name']] for p in paths.values())
         r['launches_by_path'] = {k: p[r['name']] for k, p in paths.items()}
@@ -3200,6 +3534,12 @@ def main(argv=None) -> int:
           f"in one process (batch {TRAIN_BATCH}); {DP_RANKS} ranks on this card (gloo), global "
           f"batch {DP_GLOBAL_BATCH}: losses {dp['losses']} against {dp['one_process_losses']}, "
           f"update rel L2 {dp['update_rel_l2']:.3e}, ranks' run {dp['ranks_s']:.1f} s", flush=True)
+    print(f"card: {card}; pipeline parallel ({PP_RANKS} stages of {pp['stacks_per_stage']} "
+          f"stacks on this card, gloo): parity f32 eval/train gradients rel L2 "
+          f"{pp['parity']['eval']['grad_rel_l2']:.3e} / {pp['parity']['train']['grad_rel_l2']:.3e}; "
+          f"bf16 step p50 {pp['timed'][0]['step_ms_p50']:.2f} / {pp['timed'][1]['step_ms_p50']:.2f} "
+          f"ms, global {pp['timed'][0]['global_images_per_s']:.1f} img/s at batch "
+          f"{PP_GLOBAL_BATCH} ({PP_M} microbatches); ranks' run {pp['ranks_s']:.1f} s", flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.time() - t_start:.1f} s', flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

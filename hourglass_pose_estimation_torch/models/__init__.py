@@ -2,7 +2,8 @@
 build from a config that the Trainer, the Estimator and `serve_http`
 share."""
 
-from hourglass_pose_estimation_torch.models.hourglass import HourglassNet, hg
+from hourglass_pose_estimation_torch.models.hourglass import (
+    HourglassNet, HourglassStack, HourglassStem, hg)
 from hourglass_pose_estimation_torch.models.modules import (
     Bottleneck, Hourglass, ResidualChain)
 from hourglass_pose_estimation_torch.models.mspn import MSPN, mspn

@@ -23,12 +23,19 @@ variance, as `jax.lax.pmean` does in the JAX BatchNorm, so every rank
 normalises with, and moves its running averages by, the global batch's
 statistics. The average is differentiable: its backward is the transpose
 of a pmean, a SUM all-reduce of the cotangents divided by the world size.
-With `stat_samples=k` each rank takes its own first k samples before the
-average, as the JAX explicit (shard_map) path does; the JAX implicit (jit)
-path slices the global batch instead, so there the statistics come from
-the first k samples of rank 0's rows. The port's two data-parallel paths
-both take the explicit path's rule. At world size 1, or with no process
-group, the forward is the unsynced one. Eval mode never communicates.
+With `stat_samples=k` the rows follow the path (`sync_batch_norm`'s
+`global_rows`, which the Trainer sets per path): on the explicit
+(shard_map) path each rank takes its own first k samples before the
+average, as each JAX shard slices its own; on the implicit (jit) path the
+statistics are the GLOBAL batch's first k samples, as JAX's `x[:k]` on a
+batch that jit shards: rank r (b rows) contributes its rows
+[0, clamp(k - r*b, 0, b)), and the sums (sum x, sum x^2) of every rank's
+rows, all-reduced, are divided by k (the same differentiable all-reduce,
+in its sum form; a rank with no rows in the first k contributes zeros and
+still issues it, so every rank issues the same collectives in the same
+order, a remat's recomputation included). At world size 1, or with no
+process group, the forward is the unsynced one. Eval mode never
+communicates.
 
 `update_stats = False` (see `running_stats_frozen`) keeps the running
 averages as they are in train mode: a rematerialised forward recomputes
@@ -58,19 +65,23 @@ def _data_world_size() -> int:
 
 class _MeanOverRanks(torch.autograd.Function):
     """pmean over the data group: SUM all-reduce / world, and the same in
-    the backward (the transpose of a pmean)."""
+    the backward (the transpose of a pmean). `mean=False` is the sum form,
+    psum, whose transpose is a psum too."""
 
     @staticmethod
-    def forward(ctx, x):
-        y = x.contiguous().clone()
-        dist.all_reduce(y)
-        return y / dist.get_world_size()
+    def forward(ctx, x, mean: bool = True):
+        ctx.mean = mean
+        return _all_reduce(x, mean)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g / dist.get_world_size()
+        return _all_reduce(g, ctx.mean), None
+
+
+def _all_reduce(x: torch.Tensor, mean: bool) -> torch.Tensor:
+    y = x.contiguous().clone()
+    dist.all_reduce(y)
+    return y / dist.get_world_size() if mean else y
 
 
 class BatchNorm(nn.Module):
@@ -91,6 +102,7 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(num_features))
         self.update_stats = True
         self.axis_name = None
+        self.global_rows = False
 
     def set_axis_name(self, axis_name) -> None:
         """Sync the train-mode statistics over `axis_name` ('data'), or not
@@ -104,20 +116,7 @@ class BatchNorm(nn.Module):
         sdt = torch.promote_types(torch.float32, x.dtype)
         shape = (1, -1, 1, 1)
         if train:
-            k = self.stat_samples
-            xs = (x[:k] if 0 < k < x.shape[0] else x).to(sdt)
-            axes = (0, 2, 3)
-            mean = xs.mean(dim=axes)
-            if self.fast_variance:
-                mean2 = xs.square().mean(dim=axes)
-                if self.axis_name is not None and _data_world_size() > 1:
-                    mean, mean2 = _MeanOverRanks.apply(torch.stack([mean, mean2]))
-                var = torch.clamp_min(mean2 - mean.square(), 0.0)
-            elif self.axis_name is not None:
-                raise ValueError('fast_variance=False is a single-shard numerical-parity '
-                                 'mode; axis_name sync needs the one-pass form')
-            else:
-                var = (xs - mean.view(shape)).square().mean(dim=axes)
+            mean, var = self._batch_stats(x, sdt)
             if self.update_stats:
                 self._update_running(mean, var)
         else:
@@ -125,6 +124,32 @@ class BatchNorm(nn.Module):
         mul = self.weight.to(sdt) * torch.rsqrt(var.to(sdt) + self.eps)
         return ((x.to(sdt) - mean.to(sdt).view(shape))
                 * mul.view(shape) + self.bias.to(sdt).view(shape))
+
+    def _batch_stats(self, x: torch.Tensor, sdt):
+        """(mean, biased variance) of the train-mode statistics' rows."""
+        k, axes = self.stat_samples, (0, 2, 3)
+        if self.axis_name is not None and not self.fast_variance:
+            raise ValueError('fast_variance=False is a single-shard numerical-parity '
+                             'mode; axis_name sync needs the one-pass form')
+        world = _data_world_size() if self.axis_name is not None else 1
+        if world == 1:
+            xs = (x[:k] if 0 < k < x.shape[0] else x).to(sdt)
+            mean = xs.mean(dim=axes)
+            if self.fast_variance:
+                return mean, torch.clamp_min(xs.square().mean(dim=axes) - mean.square(), 0.0)
+            return mean, (xs - mean.view(1, -1, 1, 1)).square().mean(dim=axes)
+        b = x.shape[0]
+        if self.global_rows and 0 < k < world * b:
+            # the global batch's first k rows: this rank's share of them
+            n = min(max(k - dist.get_rank() * b, 0), b)
+            xs = x[:n].to(sdt)
+            sums = torch.stack([xs.sum(dim=axes), xs.square().sum(dim=axes)])
+            mean, mean2 = _MeanOverRanks.apply(sums, False) / (k * x.shape[2] * x.shape[3])
+        else:
+            xs = (x[:k] if 0 < k < b else x).to(sdt)
+            mean, mean2 = _MeanOverRanks.apply(
+                torch.stack([xs.mean(dim=axes), xs.square().mean(dim=axes)]))
+        return mean, torch.clamp_min(mean2 - mean.square(), 0.0)
 
     @torch.no_grad()
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -148,11 +173,16 @@ def running_stats_frozen(module: nn.Module, frozen: bool = True):
             m.update_stats = v
 
 
-def sync_batch_norm(module: nn.Module, axis_name=DATA_AXIS) -> nn.Module:
+def sync_batch_norm(module: nn.Module, axis_name=DATA_AXIS,
+                    global_rows: bool = False) -> nn.Module:
     """Set `axis_name` on every BatchNorm under `module` (None: no sync):
     the one switch of global-batch statistics that both data-parallel
-    paths and `hg(bn_axis_name=...)` use, for any architecture."""
+    paths and `hg(bn_axis_name=...)` use, for any architecture.
+    `global_rows` picks the rows of sampled statistics (`stat_samples`):
+    the global batch's first k (the implicit path's, JAX's jit) or each
+    rank's first k (False, the explicit path's, JAX's shard_map)."""
     for m in module.modules():
         if isinstance(m, BatchNorm):
             m.set_axis_name(axis_name)
+            m.global_rows = global_rows
     return module

@@ -41,19 +41,24 @@ from hourglass_pose_estimation_torch.runner.train_state import (
     TrainState, _device_of, _select_subset, step_generator, step_metrics)
 
 
-def mean_over_ranks_(tensors: List[torch.Tensor], mesh) -> None:
-    """Replace each tensor (one dtype) by its mean over the mesh's ranks, in
-    ONE all-reduce of their concatenation; nothing without a process
-    group."""
-    if mesh.group is None or not tensors:
-        return
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
-    flat /= mesh.world
+def all_reduce_(tensors: List[torch.Tensor], group, divide: int) -> None:
+    """Replace each tensor by its sum over `group` (None: every rank) /
+    `divide`, in ONE all-reduce of their concatenation (in the first
+    tensor's dtype)."""
+    flat = torch.cat([t.reshape(-1).to(tensors[0].dtype) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= divide
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view(t.shape))
         offset += t.numel()
+
+
+def mean_over_ranks_(tensors: List[torch.Tensor], mesh) -> None:
+    """Replace each tensor (one dtype) by its mean over the mesh's data
+    ranks, in ONE all-reduce; nothing without a process group."""
+    if mesh.group is not None and tensors:
+        all_reduce_(tensors, mesh.group, mesh.world)
 
 
 def make_shard_map_train_step(spec, mesh, *, subset=None, pck_thr: float = 0.5,

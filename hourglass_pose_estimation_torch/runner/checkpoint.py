@@ -9,13 +9,18 @@ renames it over the target, so a crash leaves the last snapshot whole.
 
 Under data parallelism (a process group) rank 0 writes, then every rank
 meets at a barrier, so no rank goes on to read a checkpoint that is not
-whole; every rank restores from the file.
+whole; every rank restores from the file. A pipeline-parallel state
+(`parallel.pipeline.PipelineState`) is saved merged, in the standard
+layout, with its optimizer state as {'stem', 'stack'} (the JAX Trainer's
+`_ckpt_view`): every rank takes part in gathering it (`checkpoint_state`,
+a collective), rank 0 writes it, and a resume splits it again
+(`restore_state`).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -25,12 +30,17 @@ from hourglass_pose_estimation_torch.runner.train_state import TrainState
 
 def save(path: str, state: TrainState, epoch: int, best_acc: float) -> None:
     """Save state + metadata as the file `path` (rank 0's, then a barrier
-    of every rank, under a process group)."""
+    of every rank, under a process group); `state` is a TrainState or a
+    PipelineState."""
     distributed = dist.is_available() and dist.is_initialized()
+    if hasattr(state, 'checkpoint_state'):
+        model, optimizer = state.checkpoint_state()
+    else:
+        model, optimizer = state.model.state_dict(), state.optimizer.state_dict()
     if not distributed or dist.get_rank() == 0:
         _write(path, {
-            'model': state.model.state_dict(),
-            'optimizer': state.optimizer.state_dict(),
+            'model': model,
+            'optimizer': optimizer,
             'step': int(state.step),
             'epoch': int(epoch),
             'best_acc': float(best_acc),
@@ -73,25 +83,43 @@ def _check_optimizer_layout(optimizer: torch.optim.Optimizer, saved: dict) -> No
                                      f'{tuple(t.shape)} != {tuple(p.shape)}')
 
 
-def restore(path: str, state: TrainState) -> Dict[str, Any]:
-    """Restore into `state` (its model and optimizer, in place, on the
-    model's device) -> {'state', 'epoch', 'best_acc'}.
-
-    An optimizer state of another layout (another optimizer, another
-    parameter grouping) gives a fresh optimizer, with the parameters,
-    statistics and step restored and a printed line. A file that does not
-    load, or whose model state does not match, raises its own error."""
-    device = next(state.model.parameters()).device
-    payload = _load(path, device)
-    state.model.load_state_dict(payload['model'])
+def load_optimizer(optimizer: torch.optim.Optimizer, saved: Optional[dict], tx,
+                   params) -> torch.optim.Optimizer:
+    """`optimizer` with the state `saved` loaded; when `saved` is of
+    another layout (another optimizer, another parameter grouping, a
+    pipeline checkpoint's two states, or None), a fresh optimizer of the
+    rule `tx` over `params`, and a printed line."""
     try:
-        _check_optimizer_layout(state.optimizer, payload['optimizer'])
-        state.optimizer.load_state_dict(payload['optimizer'])
+        if saved is None:
+            raise KeyError('no optimizer state of this layout')
+        _check_optimizer_layout(optimizer, saved)
+        optimizer.load_state_dict(saved)
+        return optimizer
     except (ValueError, KeyError, TypeError) as e:
-        state.optimizer = state.tx.build(list(state.model.parameters()))
         print('=> checkpoint optimizer layout differs from this run '
               f'({type(e).__name__}); restored params/stats only '
               '(fresh optimizer state)', flush=True)
+        return tx.build(list(params))
+
+
+def restore(path: str, state: TrainState) -> Dict[str, Any]:
+    """Restore into `state` (a TrainState: its model and optimizer, in
+    place, on the model's device; or a PipelineState, split) -> {'state',
+    'epoch', 'best_acc'}.
+
+    An optimizer state of another layout (another optimizer, another
+    parameter grouping, the other of the standard and pipeline layouts)
+    gives a fresh optimizer, with the parameters, statistics and step
+    restored and a printed line. A file that does not load, or whose model
+    state does not match, raises its own error."""
+    module = state.stem if hasattr(state, 'restore_state') else state.model
+    payload = _load(path, next(module.parameters()).device)
+    if hasattr(state, 'restore_state'):
+        state.restore_state(payload['model'], payload['optimizer'])
+    else:
+        state.model.load_state_dict(payload['model'])
+        state.optimizer = load_optimizer(state.optimizer, payload['optimizer'], state.tx,
+                                         state.model.parameters())
     state.step = int(payload['step'])
     return {'state': state, 'epoch': int(payload['epoch']),
             'best_acc': float(payload['best_acc'])}

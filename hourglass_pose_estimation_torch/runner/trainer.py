@@ -40,9 +40,29 @@ per-replica BatchNorm statistics; it needs the device pipeline, and the
 frozen-BN phase runs on the implicit path only, as in JAX). The train
 metrics are the global batch's; validation all-reduces its sums and counts
 once a pass, the padded rows of the last batch masked out. Rank 0 logs
-(img/s counts every rank's rows) and writes the checkpoints; every rank
-restores them. Pipeline and tensor parallelism are refused with the
-ROADMAP items that bring them.
+(img/s counts every data rank's rows) and writes the checkpoints; every
+rank restores them. With TRAIN.bn_stat_samples the implicit path's
+statistics are the global batch's first rows, the explicit path's each
+rank's (`norm.sync_batch_norm`'s `global_rows`).
+
+Pipeline parallelism over stacks (`TRAIN.pipeline_parallel` = P > 1, the
+port of the JAX Trainer's pipeline mode, `parallel/pipeline.py`): the
+ranks form a (data x pipe) layout (rank = d * P + p), each stage trains
+the stem and its stacks of the hg model the config builds (its own
+modules, `pipeline.stage_of`: the standard path's initial weights from
+COMMON.seed), and each step is the GPipe step of
+`TRAIN.microbatches` microbatches over the data rank's rows
+(`make_pipeline_train_step_raw`). It needs the device pipeline and refuses
+the explicit step, tensor parallelism, remat, a stack count P does not
+divide, a train batch data_parallel * microbatches does not divide, the
+frozen-BN phase and any architecture but hg, as JAX does (JAX fails on
+another architecture inside `split_hourglass_variables`). Validation runs
+the merged model (the stages' stacks gathered) through the standard eval
+step, its rows divided over every rank and its sums all-reduced over all
+of them. Checkpoints are merged, in the standard layout, with the
+optimizer state as {'stem', 'stack'} (`runner/checkpoint.py`); a pipeline
+resume splits them again, and either layout resumes the other with a
+fresh optimizer. Tensor parallelism is refused with ROADMAP item 13c.
 """
 
 from __future__ import annotations
@@ -61,24 +81,49 @@ from hourglass_pose_estimation_torch.data import (
     to_device)
 from hourglass_pose_estimation_torch.models import model_from_config
 from hourglass_pose_estimation_torch.models.norm import sync_batch_norm
-from hourglass_pose_estimation_torch.parallel.mesh import make_mesh
+from hourglass_pose_estimation_torch.parallel.mesh import local_mesh, make_mesh
 from hourglass_pose_estimation_torch.runner import checkpoint as ckpt_lib
 from hourglass_pose_estimation_torch.runner.train_state import (
-    init_state, make_eval_step, make_optimizer, make_train_step)
+    TrainState, init_state, make_eval_step, make_optimizer, make_train_step)
 from hourglass_pose_estimation_torch.utils.evaluation import combine_pck_counts
 from hourglass_pose_estimation_torch.utils.summary import count_params, summarize
+
+
+def refuse_pipeline(cfg: Config, world: int) -> None:
+    """Raise ValueError for what pipeline parallelism does not take (the
+    JAX Trainer's refusals and messages, and its architecture); `world` is
+    the number of ranks."""
+    tc, pp = cfg.train, cfg.train.pipeline_parallel
+    if not cfg.dataset.device_pipeline:
+        raise ValueError('pipeline_parallel requires DATASET.device_pipeline=True')
+    if tc.explicit_collectives or tc.model_parallel > 1:
+        raise ValueError('pipeline_parallel is incompatible with '
+                         'explicit_collectives/model_parallel')
+    if cfg.model.arch != 'hg':
+        raise ValueError(f'pipeline_parallel splits the stacks of MODEL.arch=hg; '
+                         f'{cfg.model.arch!r} has no hourglass stacks to split')
+    if cfg.model.num_stacks % pp:
+        raise ValueError(f'num_stacks {cfg.model.num_stacks} not divisible by '
+                         f'pipeline_parallel {pp}')
+    if tc.remat:
+        raise ValueError('TRAIN.remat is not supported under pipeline_parallel (stages '
+                         'are already the recompute granularity)')
+    if tc.freeze_bn_after_epoch:
+        raise ValueError('TRAIN.freeze_bn_after_epoch is only supported on the standard '
+                         '(non-pipeline, implicit-collectives) path')
+    dp = tc.data_parallel or max(world // pp, 1)
+    if tc.train_batch % (dp * tc.microbatches):
+        raise ValueError(f'TRAIN.train_batch {tc.train_batch} must divide by '
+                         f'data_parallel*microbatches = {dp * tc.microbatches}')
 
 
 def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError for the parallelism not ported yet, and
     ValueError for what the explicit step does not take."""
     tc = cfg.train
-    for key, value, item, what in (
-            ('pipeline_parallel', tc.pipeline_parallel, '13b', 'pipeline parallelism'),
-            ('model_parallel', tc.model_parallel, '13c', 'tensor parallelism')):
-        if value > 1:
-            raise NotImplementedError(f'TRAIN.{key}={value}: {what} is not ported yet '
-                                      f'(ROADMAP Queue 1 item {item})')
+    if tc.model_parallel > 1:
+        raise NotImplementedError(f'TRAIN.model_parallel={tc.model_parallel}: tensor '
+                                  'parallelism is not ported yet (ROADMAP Queue 1 item 13c)')
     if tc.explicit_collectives and not cfg.dataset.device_pipeline:
         raise ValueError('TRAIN.explicit_collectives requires DATASET.device_pipeline=True')
     if tc.explicit_collectives and tc.freeze_bn_after_epoch:
@@ -96,14 +141,19 @@ class Trainer:
         """eval_only=True skips the train split (its annotations need not
         exist on a machine that only evaluates): the val dataset stands in
         for the pipeline spec and the never-iterated train loader, and
-        `train()` refuses to run."""
+        `train()` refuses to run; it is the shell of one process's state
+        (no process group's layout, no pipeline) even under torchrun."""
+        mc, dc, tc = cfg.model, cfg.dataset, cfg.train
+        self.pp = 1 if eval_only else tc.pipeline_parallel
+        if self.pp > 1:
+            refuse_pipeline(cfg, dist.get_world_size() if dist.is_initialized() else 1)
         refuse_unported(cfg)
-        self.mesh = make_mesh(cfg.train.data_parallel, cfg.train.model_parallel, device)
+        self.mesh = (local_mesh(device) if eval_only else
+                     make_mesh(tc.data_parallel, tc.model_parallel, device, self.pp))
         self.device = self.mesh.device
         self.cfg = cfg
         self.verbose = verbose
         self.eval_only = eval_only
-        mc, dc, tc = cfg.model, cfg.dataset, cfg.train
 
         self.num_classes = num_classes or resolve_num_classes(cfg)
         dtype = torch.bfloat16 if tc.precision == 'bf16' else torch.float32
@@ -115,10 +165,14 @@ class Trainer:
                 device=self.device, dtype=dtype, remat=tc.remat,
                 bn_stat_samples=tc.bn_stat_samples)
         # global-batch statistics on the implicit path for any architecture
-        # (JAX's jit over a sharded batch computes them), and on the
-        # explicit one under TRAIN.sync_bn (JAX's bn_axis_name='data')
-        if self.mesh.group is not None and (not tc.explicit_collectives or tc.sync_bn):
-            sync_batch_norm(self.model)
+        # (JAX's jit over a sharded batch computes them, its sampled ones
+        # from the global batch's first rows), and on the explicit one under
+        # TRAIN.sync_bn (JAX's bn_axis_name='data', each shard's rows); the
+        # pipeline's are per microbatch, unsynced (JAX builds its stem and
+        # stack with no bn_axis_name)
+        if (self.pp == 1 and self.mesh.group is not None
+                and (not tc.explicit_collectives or tc.sync_bn)):
+            sync_batch_norm(self.model, global_rows=not tc.explicit_collectives)
 
         ds_kwargs = dict(image_path=dc.image_path,
                          annotation_path=dc.annotation_path,
@@ -129,17 +183,28 @@ class Trainer:
         self.train_ds = (self.val_ds if eval_only
                          else get_dataset(dc.name, True, **ds_kwargs))
         self.spec = make_spec(self.train_ds)
-        shard = (self.mesh.rank, self.mesh.world)
+        # train rows by data rank (every stage of it steps them); validation
+        # rows over every rank
         self.train_loader = Loader(self.train_ds, tc.train_batch, shuffle=True,
-                                   seed=cfg.common.seed, drop_last=True, shard=shard)
+                                   seed=cfg.common.seed, drop_last=True,
+                                   shard=(self.mesh.rank, self.mesh.world))
         self.val_loader = Loader(self.val_ds, tc.val_batch, shuffle=False,
-                                 seed=cfg.common.seed, drop_last=False, shard=shard)
+                                 seed=cfg.common.seed, drop_last=False,
+                                 shard=(self.mesh.process_rank, self.mesh.size))
 
         steps_per_epoch = tc.steps_per_epoch or len(self.train_loader)
         self.steps_per_epoch = min(steps_per_epoch, len(self.train_loader))
         self.tx = make_optimizer(tc.learning_rate, tc.schedule, tc.gamma,
                                  self.steps_per_epoch)
-        self.state = init_state(self.model, self.tx)
+        if self.pp > 1:
+            from hourglass_pose_estimation_torch.parallel.pipeline import (
+                PipelineState, stage_of)
+            # the stage holds the model's own stem and stacks: the standard
+            # path's initial weights, trained in place
+            self.state = PipelineState.create(*stage_of(self.model, self.mesh), self.tx,
+                                              self.mesh, mc.num_stacks)
+        else:
+            self.state = init_state(self.model, self.tx)
         self._log(f"==> model '{mc.arch}', stacks={mc.num_stacks}, "
                   f'params={count_params(self.model):,}, device={self.device}, '
                   f'mesh={self.mesh.shape}')
@@ -152,7 +217,13 @@ class Trainer:
         self.canvas = dc.canvas or max(dc.inp_res, 64)
         self.crop_aware = dc.canvas_mode == 'crop'
         self.device_pipeline = dc.device_pipeline
-        if tc.explicit_collectives:
+        if self.pp > 1:
+            from hourglass_pose_estimation_torch.parallel.pipeline import (
+                make_pipeline_train_step_raw)
+            self.train_step = make_pipeline_train_step_raw(
+                self.spec, self.mesh, num_microbatches=tc.microbatches, subset=mc.subset,
+                pck_thr=cfg.common.pck)
+        elif tc.explicit_collectives:
             from hourglass_pose_estimation_torch.parallel.shard_map_step import (
                 make_shard_map_train_step)
             self.train_step = make_shard_map_train_step(
@@ -205,7 +276,7 @@ class Trainer:
                       f'(epoch {self.start_epoch})')
 
     def _log(self, msg):
-        if self.verbose and self.mesh.rank == 0:
+        if self.verbose and self.mesh.process_rank == 0:
             print(msg, flush=True)
 
     def _stage(self, raw: dict):
@@ -303,12 +374,23 @@ class Trainer:
                   f'{n_img / dt:.1f} img/s')
         return loss, acc, n_img / dt
 
+    def _eval_state(self) -> TrainState:
+        """The state validation runs: under pipeline parallelism the merged
+        model, in the standard eval step. The stem and this stage's stacks
+        are the model's own modules; the other stages' stacks are gathered
+        into it (a collective of every pipe group)."""
+        if self.pp == 1:
+            return self.state
+        self.model.load_state_dict(self.state.hourglass_state())
+        return TrainState(model=self.model, tx=self.tx, optimizer=None, step=self.state.step)
+
     def _evaluate(self):
         """Validation over the whole split -> (loss, PCK), each batch
         weighted by its valid samples (padded ones masked out). A batch's
         loss and PCK are the global batch's: its loss sums, sample counts
         and per-joint hit and valid counts are summed over the ranks (one
         all-reduce a pass)."""
+        state = self._eval_state()
         prefetch = Prefetcher(self.val_loader.epoch_indices(),
                               self._make_produce(self.val_ds, False, with_valid=True))
         rows = []
@@ -316,7 +398,7 @@ class Trainer:
             for staged, _ in prefetch:
                 batch = self._take(staged)
                 valid = batch.pop('valid')
-                m = self.eval_step(self.state, self._prepare(batch), valid)
+                m = self.eval_step(state, self._prepare(batch), valid)
                 rows.append(torch.cat([torch.stack([m['loss_sum'], m['n'].double()]),
                                        m['hit'].double(), m['joints'].double()]))
         finally:
@@ -325,7 +407,7 @@ class Trainer:
             return 0.0, 0.0
         sums = torch.stack(rows)
         if self.mesh.group is not None:
-            dist.all_reduce(sums, group=self.mesh.group)
+            dist.all_reduce(sums)                   # every rank's rows
         sums = sums.cpu()                                   # ONE fetch
         # each global batch's loss and PCK in f32, weighted by its valid
         # samples: in one process, the eval step's own f32 numbers
@@ -353,7 +435,7 @@ class Trainer:
                                '(no train split loaded)')
         cfg = self.cfg
         os.makedirs(self.ckpt_dir, exist_ok=True)
-        if self.writer is None and self.mesh.rank == 0:
+        if self.writer is None and self.mesh.process_rank == 0:
             self.writer = self._open_writer()
         # one augmentation seed per epoch, split off a stream from seed + 1;
         # the train step folds the step in (train_state.step_generator)

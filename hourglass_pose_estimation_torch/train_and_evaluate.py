@@ -20,13 +20,19 @@ Training on N ranks, one process a rank (`parallel/`):
 
 NCCL, each rank on cuda:LOCAL_RANK; `--backend gloo` runs several ranks on
 one card (with `--device cuda:0`) or on the CPU (`--device cpu`, gloo
-there always). `evaluate_only` runs in one process.
+there always). `TRAIN.pipeline_parallel=P TRAIN.microbatches=M` splits the
+hg stacks over P stages of each data rank (N = data_parallel * P ranks).
+`COMMON.evaluate_only` under torchrun does what the JAX script does: it
+initialises the process group, then runs the single-device Evaluator in
+every process on the whole validation set; rank 0 alone prints (the lines
+of one process) and writes the official metrics' files.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import sys
 
@@ -54,34 +60,40 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(cfg, common=dataclasses.replace(
         cfg.common, checkpoint_dir=os.path.join(cfg.common.checkpoint_dir,
                                                 cfg.run_name())))
-    if cfg.common.evaluate_only:
-        if int(os.environ.get('WORLD_SIZE', '1')) > 1:
-            raise ValueError('COMMON.evaluate_only runs in one process, not under '
-                             f"torchrun (WORLD_SIZE={os.environ['WORLD_SIZE']})")
-        # fail fast on a missing checkpoint, before any dataset is built
-        if not (cfg.common.resume and os.path.exists(cfg.common.resume)):
-            raise FileNotFoundError(cfg.common.resume or '<COMMON.resume unset>')
-        evaluator = Evaluator(cfg, device=args.device)
-        # the model and state shell; eval_only skips the train split
-        trainer = Trainer(cfg, verbose=False, device=args.device, eval_only=True)
-        state = ckpt_lib.restore(cfg.common.resume, trainer.state)['state']
-        print(f'Loaded model {cfg.common.resume}', flush=True)
-        loss, acc = evaluator.evaluate(state)
-        print(f'loss {loss:.5f} | pck {acc:.4f}', flush=True)
-        if cfg.eval.official:
-            table = evaluator.evaluate_official(state)
-            for k, v in table.items():
-                print(f'  {k}: {v:.3f}' if isinstance(v, float) else f'  {k}: {v}',
-                      flush=True)
-        return 0
     owned = not dist.is_initialized()
     rank, _ = maybe_initialize_distributed(device=args.device, backend=args.backend)
-    best = Trainer(cfg, device=args.device).train()
-    if owned and dist.is_initialized():
-        dist.destroy_process_group()
-    if rank == 0:
-        print(f'best val pck: {best:.4f}', flush=True)
+    try:
+        if cfg.common.evaluate_only:
+            evaluate(cfg, args.device, rank)
+        else:
+            best = Trainer(cfg, device=args.device).train()
+            if rank == 0:
+                print(f'best val pck: {best:.4f}', flush=True)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
     return 0
+
+
+def evaluate(cfg, device, rank: int = 0) -> None:
+    """The standalone Evaluator on the checkpoint COMMON.resume names, in
+    this process alone (every rank of a process group runs it whole);
+    rank 0 prints and writes the official metrics' files."""
+    # fail fast on a missing checkpoint, before any dataset is built
+    if not (cfg.common.resume and os.path.exists(cfg.common.resume)):
+        raise FileNotFoundError(cfg.common.resume or '<COMMON.resume unset>')
+    say = functools.partial(print, flush=True) if rank == 0 else (lambda *a, **k: None)
+    evaluator = Evaluator(cfg, device=device, verbose=rank == 0)
+    # the model and state shell; eval_only skips the train split
+    trainer = Trainer(cfg, verbose=False, device=device, eval_only=True)
+    state = ckpt_lib.restore(cfg.common.resume, trainer.state)['state']
+    say(f'Loaded model {cfg.common.resume}')
+    loss, acc = evaluator.evaluate(state)
+    say(f'loss {loss:.5f} | pck {acc:.4f}')
+    if cfg.eval.official:
+        table = evaluator.evaluate_official(state, output_dir=None if rank == 0 else '')
+        for k, v in table.items():
+            say(f'  {k}: {v:.3f}' if isinstance(v, float) else f'  {k}: {v}')
 
 
 if __name__ == '__main__':

@@ -11,7 +11,9 @@ walk: the path joins with '.', and the leaf renames as
   batch_stats mean -> running_mean, var -> running_var
 
 `to_jax_variables` is the inverse walk, so a trained port model can be
-compared leaf by leaf under the flax names.
+compared leaf by leaf under the flax names. `load_jax_pipeline_variables`
+fills a pipeline stage (`HourglassStem` and `HourglassStack`s) from the
+JAX pipeline's (stem, stacked) trees.
 """
 
 from __future__ import annotations
@@ -99,3 +101,23 @@ def to_jax_variables(model: torch.nn.Module) -> dict:
                 node = node.setdefault(part, {})
             node[leaf] = np.ascontiguousarray(arr)
     return out
+
+
+def load_jax_pipeline_variables(stem: torch.nn.Module, stacks, stem_vars, stacked_vars,
+                                indices=None):
+    """Fill a pipeline stage in place from the JAX pipeline layout
+    (`parallel/pipeline.py::split_hourglass_variables` there, or
+    `init_pipeline`'s state): `stem_vars` a `{'params', 'batch_stats'}`
+    tree of the stem, `stacked_vars` the stacks' tree whose every leaf has
+    a leading [S] stack axis (numpy). stacks[j] takes stack indices[j]
+    (default j). Strict, as `load_jax_variables`."""
+    indices = range(len(stacks)) if indices is None else indices
+    load_jax_variables(stem, stem_vars)
+    for stack, i in zip(stacks, indices):
+        load_jax_variables(stack, _index_tree(stacked_vars, i))
+
+
+def _index_tree(tree, i):
+    if isinstance(tree, Mapping):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]

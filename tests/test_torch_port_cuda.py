@@ -6,6 +6,11 @@ no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import json
+import os
+import socket
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -367,6 +372,46 @@ def test_small_train_step_launches_the_training_kernels(dev):
                           upsample2x_add_bwd=12, maxpool2x2_fwd=15,
                           maxpool2x2_bwd=0, maxpool2x2_bwd_first=15, render_gaussian=3)
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize('backend', ['gloo', 'nccl'])
+def test_pipeline_step_on_two_ranks_launches_the_kernels(dev, tmp_path, backend):
+    """Two pipeline ranks (tests/torch_port_pipeline_ranks.py --card):
+    over gloo both on this card, a CUDA tensor handed from stage 0 to
+    stage 1 through host memory; over NCCL one on each of two cards (it
+    skips with fewer), handed device to device. It arrives equal, on the
+    receiver's card. Then one pipelined train step of a 2-stack bf16 model
+    (a stack a stage, 2 microbatches) with the kernels: per microbatch
+    stage 0 runs the stem's pool and its stack's 4 pools and 4 merges,
+    stage 1 its stack's, each forward and backward, and each stage renders
+    the targets once."""
+    if backend == 'nccl' and torch.cuda.device_count() < 2:
+        pytest.skip('the NCCL pipeline needs two CUDA devices')
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo), WORLD_SIZE='2', MASTER_ADDR='127.0.0.1',
+               MASTER_PORT=str(port))
+    procs = [subprocess.Popen([sys.executable, str(repo / 'tests' / 'torch_port_pipeline_ranks.py'),
+                               '--card', backend, str(tmp_path)],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    logs = [proc.communicate(timeout=600)[0].decode(errors='replace') for proc in procs]
+    assert all(proc.returncode == 0 for proc in procs), logs
+    got = [json.loads((tmp_path / f'card{r}.json').read_text()) for r in range(2)]
+    assert [g['stage'] for g in got] == [0, 1] and all(g['handoff'] for g in got)
+    assert [g['device'] for g in got] == (['cuda:0', 'cuda:0'] if backend == 'gloo'
+                                          else ['cuda:0', 'cuda:1'])
+    assert got[0]['loss'] == got[1]['loss'] and np.isfinite(got[0]['loss'])
+    M = 2
+    for g, pools in zip(got, (M * 5, M * 4)):
+        assert g['launches'] == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
+                                     upsample2x_add=M * 4, decode_peaks=0,
+                                     upsample2x_add_bwd=M * 4, maxpool2x2_fwd=pools,
+                                     maxpool2x2_bwd=0, maxpool2x2_bwd_first=pools,
+                                     render_gaussian=1), g
 
 
 def test_trainer_stages_batches_on_a_side_stream(dev, tmp_path):

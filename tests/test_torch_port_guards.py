@@ -32,9 +32,9 @@ HOST_DATA = {f'hourglass_pose_estimation_torch.data.{m}' for m in (
 # and draws frames)
 SERVING_TOOLS = {f'hourglass_pose_estimation_torch.{m}' for m in (
     'export', 'export.__main__', 'serving', 'serve_http', 'serving_demo', 'utils.summary')}
-# data parallelism over processes
+# data and pipeline parallelism over processes
 PARALLEL = {f'hourglass_pose_estimation_torch.parallel{m}' for m in (
-    '', '.mesh', '.multihost', '.shard_map_step')}
+    '', '.mesh', '.multihost', '.shard_map_step', '.pipeline')}
 
 # the reference torch model's counts (num_blocks=1, num_classes=16, sum)
 REFERENCE_COUNTS = {
@@ -82,8 +82,10 @@ def test_importing_the_port_loads_no_cv2():
 
 
 def test_port_sources_import_no_jax():
-    # the port, chip_smoke and the ranks the data-parallel tests start
-    files = list(PKG.rglob('*.py')) + [REPO / 'chip_smoke.py', REPO / 'tests' / 'torch_port_ranks.py']
+    # the port, chip_smoke and the ranks the data- and pipeline-parallel
+    # tests start
+    files = list(PKG.rglob('*.py')) + [REPO / 'chip_smoke.py'] + [
+        REPO / 'tests' / f'torch_port_{m}ranks.py' for m in ('', 'pipeline_')]
     assert len(files) > 15
     assert {m.rsplit('.', 1)[-1] + '.py' for m in HOST_DATA} <= {f.name for f in files}
     bad = []
@@ -110,6 +112,17 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         make_inference_fn(model, None)
     assert make_inference_fn(model, None, device='cpu')(
         np.zeros((1, 64, 64, 3), np.float32)).shape == (1, 16, 16, 4)
+    from hourglass_pose_estimation_torch.parallel import make_mesh
+    from hourglass_pose_estimation_torch.parallel.pipeline import init_pipeline
+    from hourglass_pose_estimation_torch.runner import make_optimizer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(0, 1)
+    pipe = lambda **device: init_pipeline(1, make_optimizer(2.5e-4, [], 0.1, 1),
+                                          make_mesh(0, 1, 'cpu'), torch.Generator(),
+                                          num_feats=16, num_classes=4, **device)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipe(device='cuda')
+    assert next(pipe().stem.parameters()).device.type == 'cpu'    # the mesh's device
     from hourglass_pose_estimation_torch import serve_http
     cfg = tmp_path / 'c.yaml'
     cfg.write_text('MODEL:\n  num_stacks: 1\n')

@@ -68,6 +68,8 @@ TOL_SYNC_BN = 5e-12
 TOL_ONE_PROCESS = 2e-10
 TOL_JAX_IMPLICIT = 1e-9
 TOL_JAX_EXPLICIT = {True: 3e-9, False: 1.6e-7}
+# the implicit step with sampled statistics, against one process and JAX
+TOL_SAMPLED = 7e-9
 # the port's step reports PCK in f32, the JAX step under x64 in f64
 TOL_PCK = 1e-7
 # the trainers, f32 (see test_trainer_on_two_ranks_matches_one_process)
@@ -173,13 +175,13 @@ def _jax_sync_bn(inp, variables):
                            for r in range(ranks.WORLD)])
 
 
-def _jax_steps(variables, jspec, step, staged, sync_axis=None):
+def _jax_steps(variables, jspec, step, staged, sync_axis=None, stat_samples=0):
     """`step` (jitted, on dp=2) for each staged batch -> per-step (loss,
     acc), the parameters and each shard's statistics as state_dicts."""
     mesh = jax_make_mesh(ranks.WORLD, 1)
     with jax.enable_x64(True):
         model = JaxNet(dtype=jnp.float64, out_dtype=jnp.float64, bn_axis_name=sync_axis,
-                       **ranks.MODEL_KW)
+                       bn_stat_samples=stat_samples, **ranks.MODEL_KW)
         state = jax.device_put(jts.TrainState.create(
             apply_fn=model.apply, params=variables['params'],
             batch_stats=variables['batch_stats'], tx=jts.make_optimizer(*ranks.LR)),
@@ -195,10 +197,10 @@ def _jax_steps(variables, jspec, step, staged, sync_axis=None):
             for d in mesh.devices.flat])
 
 
-def _port_one_process(inp, spec):
+def _port_one_process(inp, spec, stat_samples=0):
     """The port's step in one process on the global batch, JAX's global
     draws injected."""
-    model = ranks.model_f64(inp['state_dict'])
+    model = ranks.model_f64(inp['state_dict'], stat_samples=stat_samples)
     state = tts.init_state(model, tts.make_optimizer(*ranks.LR))
     step = tts.make_train_step(spec)
     draws = iter(inp['draws_global'])
@@ -263,10 +265,14 @@ def run(tmp_path_factory, rng):
     procs = _spawn(work)
     try:
         jspec = jax_make_spec(JaxSynthetic(True, **ranks.DS_KW))
-        refs = dict(sync_bn=_jax_sync_bn(inp, variables), one=_port_one_process(inp, spec))
+        refs = dict(sync_bn=_jax_sync_bn(inp, variables), one=_port_one_process(inp, spec),
+                    one_k=_port_one_process(inp, spec, ranks.STEP_STAT_SAMPLES))
+        staged = [_staged(inp, spec, d) for d in inp['draws_global']]
         refs['implicit'] = _jax_steps(
-            variables, jspec, jts.make_train_step(jspec, device_pipeline=False),
-            [_staged(inp, spec, d) for d in inp['draws_global']])
+            variables, jspec, jts.make_train_step(jspec, device_pipeline=False), staged)
+        refs['implicit_k'] = _jax_steps(
+            variables, jspec, jts.make_train_step(jspec, device_pipeline=False), staged,
+            stat_samples=ranks.STEP_STAT_SAMPLES)
         explicit = [{k: np.concatenate([_staged(inp, spec, inp['draws_rank'][r][s], ranks.rows(r))[k]
                                         for r in range(ranks.WORLD)])
                      for k in ('image', 'target', 'target_weight')} for s in range(ranks.STEPS)]
@@ -341,18 +347,25 @@ def test_sync_bn_matches_jax_bn_axis_name_under_shard_map(run):
         assert _rel(total, p.grad) <= TOL_SYNC_BN, name
 
 
-def test_sync_bn_stat_samples_takes_each_ranks_first_k(run):
-    """stat_samples=k with sync: each rank's first k rows, then the mean
-    over the ranks, as the JAX explicit path does (not the global batch's
-    first k, as JAX's implicit path would): both ranks' running averages
-    equal one process's BatchNorm over the union of those rows."""
-    k = ranks.STAT_SAMPLES
+@pytest.mark.parametrize('path,k', ranks.STAT_SAMPLE_CASES)
+def test_sync_bn_stat_samples_takes_each_ranks_first_k(run, path, k):
+    """stat_samples=k with sync, on each path's rows: the explicit path
+    (JAX's shard_map, where each shard slices its own batch) takes each
+    rank's first k rows, then the mean over the ranks; the implicit path
+    (JAX's jit over a sharded batch, which slices the global batch) takes
+    the global batch's first k, within rank 0's rows (k=2) or across both
+    ranks' (k=6). Both ranks' running averages equal one process's
+    BatchNorm over those rows. (Until the implicit path's repair this test
+    held the explicit rule on both paths.)"""
     x = run['inp']['x'].permute(0, 3, 1, 2)
     bn = BatchNorm(3).double()
-    bn(torch.cat([x[ranks.rows(r)][:k] for r in range(ranks.WORLD)]), train=True)
+    if path == 'explicit':
+        bn(torch.cat([x[ranks.rows(r)][:k] for r in range(ranks.WORLD)]), train=True)
+    else:
+        bn(x[:k], train=True)
     want = torch.stack([bn.running_mean, bn.running_var])
     for got in run['ranks']:
-        assert _rel(got['sync_bn']['stat_samples'], want) <= TOL_SYNC_BN
+        assert _rel(got['sync_bn']['stat_samples'][f'{path}{k}'], want) <= TOL_SYNC_BN
 
 
 @pytest.mark.parametrize('remat', [False, True])
@@ -371,6 +384,28 @@ def test_implicit_step_matches_one_process_and_jax(run, remat):
         _close_metrics(got['metrics'], jref['metrics'], TOL_JAX_IMPLICIT)
         _close_states(got['state'], one['state'], TOL_ONE_PROCESS, f'rank {r} vs one process')
         _close_states(got['state'], jref['states'][r], TOL_JAX_IMPLICIT, f'rank {r} vs JAX')
+
+
+@pytest.mark.parametrize('remat', [False, True])
+def test_implicit_step_with_stat_samples_takes_the_global_first_k(run, remat):
+    """Two DDP steps on 2 ranks with TRAIN.bn_stat_samples=6 against JAX
+    make_train_step on dp=2 with bn_stat_samples=6, whose jit slices the
+    global batch's first 6 rows (rank 0's 4 and rank 1's first 2; each
+    rank's own first 6 would be all 8 rows, the rule this path took
+    before its repair), and against the port's one-process step on the
+    global batch: the loss and PCK of each step on both ranks, the
+    parameters and running statistics after step 2. The backward's
+    recomputation (remat) issues the statistics' all-reduces again. Read
+    (a parameter, after step 2): 1.7e-9 against JAX and 1.3e-9 against
+    one process (the statistics of 6 rows, 1x1 at the hourglass's bottom),
+    held at 7e-9."""
+    one, jref = run['refs']['one_k'], run['refs']['implicit_k']
+    for r, got in enumerate(run['ranks']):
+        got = got[f'implicit_remat{int(remat)}_k{ranks.STEP_STAT_SAMPLES}']
+        _close_metrics(got['metrics'], one['metrics'], TOL_SAMPLED)
+        _close_metrics(got['metrics'], jref['metrics'], TOL_SAMPLED)
+        _close_states(got['state'], one['state'], TOL_SAMPLED, f'rank {r} vs one process')
+        _close_states(got['state'], jref['states'][r], TOL_SAMPLED, f'rank {r} vs JAX')
 
 
 @pytest.mark.parametrize('sync_bn', [True, False])
@@ -481,13 +516,17 @@ def test_ranks_import_no_jax(run):
 
 def test_mesh_in_one_process():
     """No process group: one rank, no group; data_parallel=2 cannot be met
-    (JAX's make_mesh asserts a mesh larger than the devices); tensor
-    parallelism waits for item 13c."""
+    (JAX's make_mesh asserts a mesh larger than the devices), nor can
+    pipeline_parallel=2; tensor parallelism waits for item 13c."""
     mesh = make_mesh(0, 1, 'cpu')
     assert (mesh.world, mesh.rank, mesh.device.type, mesh.group) == (1, 0, 'cpu', None)
+    assert (mesh.shape, mesh.process_rank, mesh.size) == (
+        {'data': 1, 'pipe': 1, 'model': 1}, 0, 1)
     assert make_mesh(1, 1, 'cpu').world == 1
     with pytest.raises(ValueError, match='world size 1'):
         make_mesh(2, 1, 'cpu')
+    with pytest.raises(ValueError, match='needs 2 ranks'):
+        make_mesh(0, 1, 'cpu', pipeline_parallel=2)
     with pytest.raises(NotImplementedError, match='item 13c'):
         make_mesh(0, 2, 'cpu')
 
@@ -511,16 +550,29 @@ def test_initialize_distributed_is_a_no_op_or_raises(monkeypatch):
     assert not dist.is_initialized()
 
 
-def test_evaluate_only_refuses_several_ranks(monkeypatch, tmp_path):
-    """The standalone evaluator runs in one process (the JAX Evaluator has
-    no process handling): under torchrun's WORLD_SIZE > 1 the CLI refuses
-    it before it reads anything."""
+def test_evaluate_only_on_two_ranks_matches_one_process(run, tmp_path, capsys):
+    """COMMON.evaluate_only under the process group (as torchrun starts it)
+    does what the JAX script does: every rank runs the single-device
+    evaluator on the whole validation set, so each reads what one process
+    reads on the ranks' checkpoint_1; rank 0 alone prints, the lines of one
+    process."""
     from hourglass_pose_estimation_torch import train_and_evaluate
-    monkeypatch.setenv('WORLD_SIZE', '2')
-    with pytest.raises(ValueError, match='one process'):
-        train_and_evaluate.main([str(REPO / 'configs' / 'train_synthetic_tiny.yaml'),
-                                 'COMMON.evaluate_only=true', f'COMMON.checkpoint_dir={tmp_path}',
-                                 '--device', 'cpu'])
+    ckpt = _ckpts(run['work'], 'straight') / 'checkpoint_1'
+    assert train_and_evaluate.main([str(REPO / 'configs' / 'train_synthetic_tiny.yaml')]
+                                   + ranks.TRAINER_ARGS + [
+        'COMMON.evaluate_only=true', f'COMMON.resume={ckpt}', f'COMMON.checkpoint_dir={tmp_path}',
+        '--device', 'cpu']) == 0
+    printed = capsys.readouterr().out
+    loss, acc = (float(v) for v in next(ln for ln in printed.splitlines()
+                                        if ln.startswith('loss ')).split()[1::3])
+    got = [r['evaluate_only'] for r in run['ranks']]
+    for g in got:
+        assert g['metrics'].shape == (1, 2)
+        np.testing.assert_allclose(g['metrics'][0].numpy(), got[0]['metrics'][0].numpy(), rtol=0)
+    assert got[0]['metrics'][0, 0].item() == pytest.approx(loss, abs=5e-6)
+    assert got[0]['metrics'][0, 1].item() == pytest.approx(acc, abs=5e-5)
+    assert got[0]['printed'].splitlines()[-2:] == printed.splitlines()[-2:]
+    assert got[1]['printed'] == ''
 
 
 def test_sync_bn_without_a_process_group_is_the_plain_forward():

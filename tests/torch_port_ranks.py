@@ -7,12 +7,16 @@ tests/test_torch_port_parallel.py as its own process:
 It imports torch and the port only (a child that imported the test module
 would load JAX and the conftest's device flags), reads `<work
 dir>/inputs.pt` and writes `<work dir>/rank<r>.pt`: the sync-BN forward and
-backward, the implicit (DDP) step with and without remat, the explicit
-step with sync_bn on and off, and two runs of the trainer CLI (two epochs,
-and a resume from the first run's checkpoint_1)."""
+backward, the implicit (DDP) step with and without remat, with full and
+with sampled statistics (the global batch's first STEP_STAT_SAMPLES rows),
+the explicit step with sync_bn on and off, two runs of the trainer CLI
+(two epochs, and a resume from the first run's checkpoint_1) and the
+standalone evaluator CLI on that checkpoint_1."""
 
 from __future__ import annotations
 
+import contextlib
+import io
 import os
 import sys
 from pathlib import Path
@@ -42,6 +46,17 @@ LR = (2.5e-3, [], 0.1, 4)
 SEED = 7
 STEPS = 2
 STAT_SAMPLES = 2
+# the lone BatchNorm's sampled statistics: (path, k), the implicit path's k
+# within rank 0's rows and across both ranks'
+STAT_SAMPLE_CASES = (('explicit', 2), ('implicit', 2), ('implicit', 6))
+# the implicit step's sampled statistics: the global batch's first 6 rows,
+# rank 0's 4 and rank 1's first 2 (each rank's first 6 would be all 8). With
+# k <= 4 rows the statistics at the hourglass's 1x1 bottom level are so
+# narrow that the step-1 loss reads 214 (k=4) to 7e8 (k=2), and the
+# rounding noise of the gradients of the conv biases that feed a BatchNorm
+# (0 in exact arithmetic) reaches RMSprop's eps: their updates then differ
+# by 1e-3 between any two summation orders, one process's against JAX's too
+STEP_STAT_SAMPLES = 6
 # every collective and the rendezvous give up after this many seconds
 TIMEOUT_S = 120
 # the trainer CLI's run: configs/train_synthetic_tiny.yaml (1 stack, 64^2,
@@ -53,11 +68,12 @@ TRAINER_ARGS = ['DATASET.num_samples=10', 'TRAIN.train_batch=8', 'TRAIN.val_batc
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'hourglass_pose_estimation_tpu')
 
 
-def model_f64(state_dict, remat: bool = False) -> HourglassNet:
+def model_f64(state_dict, remat: bool = False, stat_samples: int = 0) -> HourglassNet:
     """The tests' model in f64 throughout (parameters, statistics and
     compute: with f32 parameters the ranks' f32 gradients cancel in their
     average where one process's f64 sum does not) with the given weights."""
     model = HourglassNet(dtype=torch.float64, out_dtype=torch.float64, remat=remat,
+                         bn_stat_samples=stat_samples,
                          **MODEL_KW).double().to(memory_format=torch.channels_last)
     model.load_state_dict(state_dict)
     return model
@@ -70,18 +86,21 @@ def rows(rank: int) -> slice:
 
 def sync_bn_run(inp, rank: int) -> dict:
     """Train-mode forward and backward of sum(outs * ct) on this rank's rows
-    with synced statistics; a lone BatchNorm with stat_samples."""
+    with synced statistics; a lone BatchNorm with stat_samples on each
+    path's rows (STAT_SAMPLE_CASES)."""
     model = sync_batch_norm(model_f64(inp['state_dict']))
     x = inp['x'][rows(rank)].clone().requires_grad_(True)
     outs = model(x, train=True)
     (outs * inp['ct'][:, rows(rank)]).sum().backward()
-    bn = BatchNorm(3, stat_samples=STAT_SAMPLES).double()
-    bn.set_axis_name('data')
-    bn(inp['x'][rows(rank)].permute(0, 3, 1, 2), train=True)
+    sampled = {}
+    for path, k in STAT_SAMPLE_CASES:
+        bn = sync_batch_norm(BatchNorm(3, stat_samples=k).double(),
+                             global_rows=path == 'implicit')
+        bn(inp['x'][rows(rank)].permute(0, 3, 1, 2), train=True)
+        sampled[f'{path}{k}'] = torch.stack([bn.running_mean, bn.running_var])
     return {'outs': outs.detach(), 'dx': x.grad,
             'grads': {n: p.grad for n, p in model.named_parameters()},
-            'state': model.state_dict(),
-            'stat_samples': torch.stack([bn.running_mean, bn.running_var])}
+            'state': model.state_dict(), 'stat_samples': sampled}
 
 
 def steps_run(inp, rank: int, step, module, draws, model) -> dict:
@@ -153,6 +172,31 @@ def trainer_runs(work: Path, rank: int) -> dict:
                                 dtype=torch.float64)}
 
 
+def evaluate_only_run(work: Path) -> dict:
+    """The evaluator CLI (COMMON.evaluate_only) under the process group on
+    the trainer's checkpoint_1: every rank's (loss, PCK) and what it
+    printed."""
+    got = []
+
+    class Recording(train_and_evaluate.Evaluator):
+        def evaluate(self, state):
+            got.append(super().evaluate(state))
+            return got[-1]
+
+    evaluator, train_and_evaluate.Evaluator = train_and_evaluate.Evaluator, Recording
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            train_and_evaluate.main(
+                [str(REPO / 'configs' / 'train_synthetic_tiny.yaml')] + TRAINER_ARGS + [
+                    'COMMON.evaluate_only=true', f'COMMON.checkpoint_dir={work}/evaluated',
+                    f'COMMON.resume={work}/straight/synthetic_hg_s1_non-mobile_all/ckpts/'
+                    'checkpoint_1', '--device', 'cpu', '--backend', 'gloo'])
+    finally:
+        train_and_evaluate.Evaluator = evaluator
+    return {'metrics': torch.tensor(got, dtype=torch.float64), 'printed': out.getvalue()}
+
+
 def main(work: Path) -> int:
     torch.set_num_threads(1)
     rank, world = maybe_initialize_distributed(device='cpu', timeout=TIMEOUT_S, verbose=False)
@@ -162,15 +206,19 @@ def main(work: Path) -> int:
     mesh = make_mesh(0, 1, 'cpu')
     out = {'sync_bn': sync_bn_run(inp, rank)}
     for remat in (False, True):
-        out[f'implicit_remat{int(remat)}'] = steps_run(
-            inp, rank, train_state.make_train_step(spec, mesh=mesh), train_state,
-            inp['draws_global'], sync_batch_norm(model_f64(inp['state_dict'], remat)))
+        for k in (0, STEP_STAT_SAMPLES):
+            # as the Trainer builds the implicit path's model
+            model = sync_batch_norm(model_f64(inp['state_dict'], remat, k), global_rows=True)
+            out[f'implicit_remat{int(remat)}' + (f'_k{k}' if k else '')] = steps_run(
+                inp, rank, train_state.make_train_step(spec, mesh=mesh), train_state,
+                inp['draws_global'], model)
     for sync in (True, False):
         model = model_f64(inp['state_dict'])
         out[f'explicit_sync{int(sync)}'] = steps_run(
             inp, rank, make_shard_map_train_step(spec, mesh, sync_bn=sync), shard_map_step,
             inp['draws_rank'][rank], sync_batch_norm(model) if sync else model)
     out['trainer'] = trainer_runs(work, rank)
+    out['evaluate_only'] = evaluate_only_run(work)
     out['forbidden_modules'] = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)
     torch.save(out, work / f'rank{rank}.pt')
     torch.distributed.destroy_process_group()
