@@ -181,10 +181,42 @@ failure):
      validation of those weights. Two ranks on one card share its SMs and
      pass each hand-off through host memory: its times are not two cards'
      over NVLink;
- 20. the `kernels` JSON line (launches summed over the main paths of
-     phases 4, 6-11, 12-14, 15, 16, 17, 18 and 19, each rank's among them;
-     the pool backward that splits ties is on none of them), then the
-     result line.
+ 20. the overlapped train step (`make_overlapped_train_step`): the
+     flagship at batch 64, the next batch's augmentation and target render
+     staged on a side stream; the prime, 3 overlapped steps and the drain
+     against as many sequential steps from the same weights (each staged
+     batch bit-equal to the sequential augmentation of it, every loss
+     within 1e-6 relative of the sequential one), exact launches;
+     step ms p50 overlapped and sequential, timed in turns (3 warm-up, 5
+     timed);
+ 21. tensor parallelism (`parallel/tensor_parallel.py`): the flagship
+     over a (data 1 x model 2) layout, two ranks on this one card over
+     gloo (which copies every model-axis collective through host memory),
+     each rank a process of its own that loads the library phase 2 built;
+     (a) in f32 (TF32 off) at a global batch of 8, one step in eval mode
+     (frozen BN) and one in train mode against one process's unsharded
+     step with the same weights (the loss, the gathered gradients, the
+     update), the model ranks' replicated gradients before their average
+     (how far each rank's lies from it), the replicated parameters
+     bit-equal on both ranks; (b) in bf16 at a global batch of 16, 2
+     warm-up and 3 timed steps: every loss finite and equal on both ranks,
+     step ms p50, global img/s, the model axis's bytes and collectives a
+     step and their host ms, peak memory, exact launches (each rank sees
+     the full activations: 33 + 33 pool, 32 + 32 upsample, 1 render a
+     step), and a frozen-BN step with no fused bottleneck (its blocks hold
+     shards); (c) the trainer CLI with TRAIN.model_parallel=2: an epoch of
+     4 steps at batch 4 and one with BN frozen (launches exact), validation
+     through the gathered standard-layout replica (65/32/33 launches and 1
+     render a val batch), rank 0 alone writing checkpoint_1 in the
+     standard layout, a TP resume that restores every tensor exactly and
+     shards the same leaves again, and `evaluate_only` (EVAL.official) of
+     checkpoint_1, reading the trainer's validation of those weights. Two
+     ranks on one card share its SMs and pass every collective through
+     host memory: its times are not two cards' over NVLink;
+ 22. the `kernels` JSON line (launches summed over the main paths of
+     phases 4, 6-11, 12-14, 15, 16, 17, 18, 19, 20 and 21, each rank's
+     among them; the pool backward that splits ties is on none of them),
+     then the result line.
 --profile adds torch.profiler breakdowns (by kernel, by launching
 PyTorch op, by kind) of one serving batch and of one train step, each for
 the hourglass and for MSPN, and the serving front end's rate alone.
@@ -431,6 +463,57 @@ PP_LAUNCHES = [dict(maxpool2x2_fwd=68, maxpool2x2_bwd_first=68, upsample2x_add=6
 PP_TRAINER = DP_TRAINER + ['TRAIN.pipeline_parallel=2', f'TRAIN.microbatches={PP_M}']
 TOL_PP_EVALUATE_ONLY = TOL_EVALUATOR
 PP_TIMEOUT_S = 600
+# the overlapped phase (20): the flagship train step at batch 64 on the
+# fixed batch, the next batch's augmentation and render staged on a side
+# stream. The prime, OVERLAP_STEPS overlapped steps and the drain against
+# as many sequential steps from the same weights: each staged batch
+# bit-equal to the sequential augmentation of it, and every loss within
+# 1e-6 relative of the sequential one (the same step on the same tensors:
+# read 0 on an H100); then both timed in turns
+OVERLAP_STEPS = 3
+OVERLAP_WARMUP, OVERLAP_TIMED = 3, 5
+TOL_OVERLAP_LOSS = 1e-6
+# the tensor-parallel phase (21): the flagship over a (data 1 x model 2)
+# layout, two ranks on this one card over gloo (every model-axis collective
+# through host memory), each loading the library phase 2 built. (a) f32,
+# TF32 off, a global batch of 8 (the host pipeline, staged here): one step
+# in eval mode (frozen BN) and one in train mode against one process's
+# unsharded step with the same weights: the loss, relative; the gradients
+# gathered and the update, relative L2 over the model. Read on an H100:
+# the losses 0 (each output channel is the sum one process forms), the
+# gradients 1.35e-7 (eval) and 3.45e-6 (train), the update 3.4e-3 and
+# 3.2e-4 (RMSprop's first update follows the sign of the gradients that
+# are rounding noise); held at about 4x, the losses at f32's rounding of
+# one sum
+TP_RANKS, TP_PARITY_BATCH = 2, 8
+TOL_TP_LOSS = {'eval': 1e-6, 'train': 1e-6}
+TOL_TP_GRAD = {'eval': 6e-7, 'train': 1.4e-5}
+TOL_TP_UPDATE = {'eval': 1.4e-2, 'train': 1.3e-3}
+# the model ranks' replicated gradients before the average that keeps them
+# one value (`ShardedTrainState.replicated_spread`): the largest distance
+# of a rank's from the average, relative to the leaf's largest value. Read
+# on an H100 in two runs: 2.13e-7 and 3.19e-7 (eval), 5.07e-7 and 3.85e-7
+# (train), in 10 of the 30 replicated leaves, the largest in the
+# replicated convs' weights (each process may take another cuDNN
+# weight-gradient algorithm); held at about 4x the larger reading
+TOL_TP_SPREAD = {'eval': 1.3e-6, 'train': 2e-6}
+# (b) bf16 at a global batch of 16 (each rank computes all 16 rows, its
+# slice of each sharded conv's channels): 2 warm-up and 3 timed steps,
+# TRAIN_LAUNCHES a step on each rank (each sees the full activations), and
+# one frozen-BN step, which launches no fused bottleneck (its blocks hold
+# shards)
+TP_GLOBAL_BATCH, TP_WARMUP, TP_TIMED = 16, 2, 3
+# (c) the trainer CLI with TRAIN.model_parallel=2: an epoch of 4 steps at
+# batch 4 (on an H100 a step of batch 16 took 14.5 s, of 8 about 7: the
+# model axis's bytes, which scale with the batch, go through host memory), then
+# one with BN frozen; a TP resume from checkpoint_1 (built and checked, no
+# epoch run); evaluate_only of checkpoint_1 against the trainer's
+# validation of those weights (4 batches of 32, 16 rows a rank), held as
+# the evaluator phase holds its own
+TP_TRAINER = DP_TRAINER + ['TRAIN.model_parallel=2', 'TRAIN.train_batch=4', 'TRAIN.epochs=2',
+                           'TRAIN.freeze_bn_after_epoch=1']
+TOL_TP_EVALUATE_ONLY = TOL_EVALUATOR
+TP_TIMEOUT_S = 900
 
 def fail(msg: str) -> None:
     raise SystemExit(f'chip_smoke: FAIL: {msg}')
@@ -3203,6 +3286,379 @@ def pp_ranks_phase(seed: int, paths: dict, tmp: str) -> dict:
     return out
 
 
+def overlap_phase(seed: int, raw, spec, paths: dict) -> dict:
+    """20. The overlapped train step (`make_overlapped_train_step`) on the
+    flagship at batch 64: the prime, OVERLAP_STEPS overlapped steps and the
+    drain against the sequential step from the same weights, then both
+    timed in turns."""
+    import torch
+    from hourglass_pose_estimation_torch.runner import init_state, make_optimizer, make_train_step
+    from hourglass_pose_estimation_torch.runner.train_state import (
+        STAGED_KEYS, make_overlapped_train_step, make_stage_fn)
+    tx = make_optimizer(*OPT)
+    model = flagship_model(seed)
+    seq_state, state = init_state(copy.deepcopy(model), tx), init_state(model, tx)
+    seq = make_train_step(spec)
+    stage = make_stage_fn(spec, device=next(model.parameters()).device)
+    ostep, drain = make_overlapped_train_step(spec), make_train_step(spec, device_pipeline=False)
+    n = OVERLAP_STEPS + 1
+    seq_losses = [float(seq(seq_state, raw, seed)[1]['loss']) for _ in range(n)]
+    zero_counts()
+    staged = stage(raw, seed, state.step)
+    kept, losses = [{k: v.clone() for k, v in staged.items()}], []
+    for _ in range(OVERLAP_STEPS):
+        state, staged, m = ostep(state, staged, raw, seed)
+        losses.append(float(m['loss']))
+        kept.append({k: v.clone() for k, v in staged.items()})
+    state, m = drain(state, staged, seed)
+    losses.append(float(m['loss']))
+    paths['overlap'] = counts = read_counts()
+    # n steps; n renders: the prime's and each overlapped step's staging
+    expect_counts(counts, f'overlapped: prime, {OVERLAP_STEPS} steps, drain',
+                  **{k: v * n for k, v in TRAIN_LAUNCHES.items()})
+    equal = [all(torch.equal(st[k], ref[k]) for k in STAGED_KEYS)
+             for st, ref in zip(kept, (stage(raw, seed, i) for i in range(n)))]
+    del kept
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, seq_losses)]
+
+    times = {'sequential': [], 'overlapped': []}
+    staged = stage(raw, seed, state.step)
+    for i in range(OVERLAP_WARMUP + OVERLAP_TIMED):
+        for name in (('sequential', 'overlapped') if i % 2 else ('overlapped', 'sequential')):
+            t0 = time.perf_counter()
+            if name == 'sequential':
+                seq_state, m = seq(seq_state, raw, seed)
+            else:
+                state, staged, m = ostep(state, staged, raw, seed)
+            float(m['loss'])                              # waits for the step
+            if i >= OVERLAP_WARMUP:
+                times[name].append(time.perf_counter() - t0)
+    out = dict(batch=len(raw['canvas']), staged_equal=equal, losses=losses,
+               sequential_losses=seq_losses, loss_rel=rel,
+               overlapped_step_ms_p50=p50(times['overlapped']),
+               sequential_step_ms_p50=p50(times['sequential']),
+               overlapped_step_ms=[t * 1e3 for t in times['overlapped']],
+               sequential_step_ms=[t * 1e3 for t in times['sequential']])
+    out['overlapped_images_per_s'] = out['batch'] / out['overlapped_step_ms_p50'] * 1e3
+    out['sequential_images_per_s'] = out['batch'] / out['sequential_step_ms_p50'] * 1e3
+    print('overlapped step: ' + json.dumps(out) + f' (gate: every loss {TOL_OVERLAP_LOSS}; '
+          f'launches {counts})', flush=True)
+    check(all(equal), f'overlapped: staged batches equal to the sequential ones: {equal}')
+    check(all(v == v and abs(v) < float('inf') for v in losses), f'overlapped: {losses}')
+    check(max(rel) <= TOL_OVERLAP_LOSS, f'overlapped: losses rel {rel}')
+    return out
+
+
+def tp_counting_trainer(runs: list):
+    """`counting_trainer` for a tensor-parallel Trainer: a resumed one
+    compares its gathered state (a collective of the model group) with the
+    checkpoint's and counts the leaves that hold a shard."""
+    import torch
+    base = counting_trainer(runs)
+
+    class TensorParallelCounting(base):
+        def _against_checkpoint(self, path: str) -> dict:
+            saved = torch.load(path, map_location='cpu', weights_only=True)
+            model, opt = self.state.checkpoint_state()
+            full = {k: v.shape for k, v in self.state.standard.state_dict().items()}
+            sopt = saved['optimizer']['state']
+            return dict(
+                start_epoch=self.start_epoch, step=self.state.step, saved_step=saved['step'],
+                model_tensors=len(model),
+                model_equal=model.keys() == saved['model'].keys() and all(
+                    torch.equal(v, saved['model'][k]) for k, v in model.items()),
+                optimizer_tensors=sum(len(st) for st in opt['state'].values()),
+                optimizer_equal=len(opt['state']) == len(sopt) > 0 and all(
+                    torch.equal(v, sopt[i][k]) for i, st in opt['state'].items()
+                    for k, v in st.items()),
+                sharded_leaves=sum(1 for k, v in self.state.model.state_dict().items()
+                                   if v.shape != full[k]))
+
+    return TensorParallelCounting
+
+
+def tp_rank(work: str, seed: int) -> int:
+    """One of the TP_RANKS model ranks of the tensor-parallel phase, in a
+    process of its own on cuda:0 over gloo, with the library phase 2 built
+    (loaded, not built again): (a) the f32 parity steps on the batch the parent saved, (b)
+    the bf16 timed steps and a frozen-BN step, (c) the trainer CLI, its
+    resume and evaluate_only of its checkpoint_1. Writes
+    `<work>/rank<r>.json` and the parity tensors."""
+    import os
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    from hourglass_pose_estimation_torch.ops.hopper import _build
+    from hourglass_pose_estimation_torch.parallel import (
+        ShardedTrainState, gather_params, make_mesh, maybe_initialize_distributed,
+        sync_batch_norm)
+    from hourglass_pose_estimation_torch.parallel import tensor_parallel as tpl
+    from hourglass_pose_estimation_torch.runner import make_optimizer, make_train_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(work)
+    rank = int(os.environ['RANK'])
+    t0 = time.time()
+    lib = _build.library()
+    out = dict(rank=rank, load_s=time.time() - t0, library=Path(lib._name).name)
+    maybe_initialize_distributed(DP_DEVICE, backend='gloo', timeout=TP_TIMEOUT_S, verbose=False)
+    mesh = make_mesh(1, TP_RANKS, DP_DEVICE)
+    out['model_rank'] = mesh.model_rank
+
+    def sharded_state(dtype=None):
+        model = flagship_model(seed, device=mesh.device, **({'dtype': dtype} if dtype else {}))
+        sync_batch_norm(model, global_rows=True, group=mesh.group)
+        return ShardedTrainState.create(model, make_optimizer(*DP_OPT), mesh)
+
+    # (a) parity, f32
+    batch = {k: v.to(mesh.device) for k, v in torch.load(work / 'batch.pt').items()}
+    cpu = lambda d: {k: v.detach().float().cpu().clone() for k, v in d.items()}
+    for mode in ('eval', 'train'):
+        state = sharded_state(torch.float32)
+        shapes = {k: v.shape for k, v in state.standard.state_dict().items()}
+        step = make_train_step(None, device_pipeline=False, freeze_bn=mode == 'eval', mesh=mesh)
+        state, m = step(state, batch, seed)
+        out[f'{mode}_loss'] = float(m['loss'])
+        spread = state.replicated_spread.cpu()
+        out[f'{mode}_spread'] = dict(max=float(spread.max()),
+                                     worst=state.replicated[int(spread.argmax())],
+                                     nonzero=int(torch.count_nonzero(spread)),
+                                     leaves=len(state.replicated))
+        params = dict(state.model.named_parameters())
+        grads = cpu(gather_params({n: p.grad for n, p in params.items()}, mesh, shapes))
+        after = cpu(gather_params(params, mesh, shapes))
+        if rank == 0:
+            torch.save({'grads': grads, 'after': after}, work / f'parity_{mode}.pt')
+        torch.save(cpu({n: p for n, p in params.items() if p.shape == shapes[n]}),
+                   work / f'replicated_{mode}{rank}.pt')
+        del state, params
+        torch.cuda.empty_cache()
+
+    # (b) the timed bf16 steps, the main path's launches
+    raw, spec = train_data(TP_GLOBAL_BATCH)
+    state = sharded_state()
+    full = {k: v.shape for k, v in state.standard.state_dict().items()}
+    out['sharded_leaves'] = sum(1 for k, v in state.model.state_dict().items()
+                                if v.shape != full[k])
+    step = make_train_step(spec, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, times, traffic = [], [], []
+    for _ in range(TP_WARMUP + TP_TIMED):
+        tpl.TRAFFIC.reset()
+        t0 = time.perf_counter()
+        state, m = step(state, raw, seed)
+        losses.append(float(m['loss']))
+        times.append(time.perf_counter() - t0)
+        traffic.append(dict(calls=tpl.TRAFFIC.calls, bytes=tpl.TRAFFIC.bytes,
+                            ms=tpl.TRAFFIC.seconds * 1e3))
+    counts = read_counts()
+    n = TP_WARMUP + TP_TIMED
+    expect_counts(counts, f'tp rank {rank}: {n} steps',
+                  **{k: v * n for k, v in TRAIN_LAUNCHES.items()})
+    check(all(abs(v) < float('inf') for v in losses), f'tp rank {rank}: losses {losses}')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    zero_counts()
+    state, m = make_train_step(spec, freeze_bn=True, mesh=mesh)(state, raw, seed)
+    frozen = dict(loss=float(m['loss']), launches=read_counts())
+    expect_counts(frozen['launches'], f'tp rank {rank}: frozen-BN step', **TRAIN_LAUNCHES)
+    timed = times[TP_WARMUP:]
+    out['timed'] = dict(losses=losses, step_ms=[t * 1e3 for t in times], step_ms_p50=p50(timed),
+                        global_images_per_s=TP_GLOBAL_BATCH / p50(timed) * 1e3,
+                        traffic=traffic,
+                        model_axis_mb_per_step=traffic[-1]['bytes'] / 1e6,
+                        collectives_per_step=traffic[-1]['calls'],
+                        collective_host_ms_p50=sorted(t['ms'] for t in traffic[TP_WARMUP:])[
+                            TP_TIMED // 2],
+                        max_memory_allocated_gib=peak, launches=counts, frozen=frozen)
+    del state
+    torch.cuda.empty_cache()
+
+    # (c) the trainer CLI, a TP resume, evaluate_only
+    runs, calls = [], []
+    argv = [str(REPO / 'configs' / 'train_mpii_8stack.yaml')] + TP_TRAINER + [
+        f'COMMON.checkpoint_dir={work / "trainer"}']
+    flags = ['--device', DP_DEVICE, '--backend', 'gloo']
+    trainer = tp_counting_trainer(runs)
+    out['trainer_s'] = run_main(argv + flags, f'tp rank {rank} trainer', Trainer=trainer)
+    ckpts = next((work / 'trainer').glob('*/ckpts'))
+    out['written'] = sorted(p.name for p in ckpts.iterdir())
+    resume = f'COMMON.resume={ckpts / "checkpoint_1"}'
+    out['resumed_s'] = run_main(argv + [resume, 'TRAIN.epochs=1'] + flags,
+                                f'tp rank {rank} trainer, resumed', Trainer=trainer)
+    out['evaluate_only_s'] = run_main(
+        argv + ['COMMON.evaluate_only=true', 'EVAL.official=true', resume] + flags,
+        f'tp rank {rank} evaluate_only', Evaluator=counting_evaluator(calls))
+    out['evaluate_only'] = {c['what']: dict(counts=c['counts'], s=c['s'],
+                                            out=c['out'] if c['what'] == 'evaluate' else None)
+                            for c in calls}
+    out['trainer'] = [dict(history=r.history, counts=r.counts, resumed=r.resumed,
+                           steps=r.steps_per_epoch, val_batches=len(r.val_loader)) for r in runs]
+    (work / f'rank{rank}.json').write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_ranks_phase(seed: int, paths: dict, tmp: str) -> dict:
+    """21. Tensor parallelism: the flagship over a (data 1 x model 2) layout
+    on this one card over gloo (`tp_rank`), against one process."""
+    import os
+    import torch
+    from hourglass_pose_estimation_torch.data import augment_batch, sample_augmentations, to_device
+    from hourglass_pose_estimation_torch.runner import init_state, make_optimizer, make_train_step
+    from hourglass_pose_estimation_torch.runner.train_state import step_generator
+    work = Path(tmp) / 'tp'
+    work.mkdir()
+    # (a) one process on the parity batch, f32: a step in eval mode (frozen
+    # BN) and one in train mode, each from the seed's weights
+    raw, spec = train_data(TP_PARITY_BATCH)
+    dev = torch.device(DP_DEVICE)
+    data = to_device(raw, dev)
+    data = augment_batch(data, sample_augmentations(
+        step_generator(seed, 0, dev), data['scale'], scale_factor=spec.scale_factor,
+        rot_factor=spec.rot_factor, train=True), spec, True)
+    batch = {k: data[k] for k in ('image', 'target', 'target_weight')}
+    torch.save({k: v.cpu() for k, v in batch.items()}, work / 'batch.pt')
+    ref = {}
+    for mode in ('eval', 'train'):
+        model = flagship_model(seed, dtype=torch.float32)
+        start = {n: p.detach().float().cpu().clone() for n, p in model.named_parameters()}
+        state = init_state(model, make_optimizer(*DP_OPT))
+        step = make_train_step(None, device_pipeline=False, freeze_bn=mode == 'eval')
+        state, m = step(state, batch, seed)
+        ref[mode] = dict(loss=float(m['loss']), grads=grads_of(model), start=start,
+                         after={n: p.detach().float().cpu().clone()
+                                for n, p in model.named_parameters()})
+        del state, model
+    del data, batch
+    torch.cuda.empty_cache()
+
+    env = dict(os.environ, WORLD_SIZE=str(TP_RANKS), MASTER_ADDR='127.0.0.1',
+               MASTER_PORT=str(free_port()))
+    procs, logs = [], []
+    t0 = time.time()
+    for r in range(TP_RANKS):
+        logs.append(work / f'rank{r}.log')
+        with open(logs[-1], 'wb') as log:        # files, not pipes: a full pipe blocks a rank
+            procs.append(subprocess.Popen(
+                [sys.executable, '-c', f'import sys; import chip_smoke; '
+                 f'sys.exit(chip_smoke.tp_rank({str(work)!r}, {seed}))'],
+                cwd=REPO, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=log,
+                stderr=subprocess.STDOUT))
+    wait_ranks(procs, logs, TP_TIMEOUT_S)
+    ranks_s = time.time() - t0
+    res = [json.loads((work / f'rank{r}.json').read_text()) for r in range(TP_RANKS)]
+    check([r['model_rank'] for r in res] == list(range(TP_RANKS)), 'tp: model ranks')
+    check(len({r['library'] for r in res}) == 1, f"tp: libraries {[r['library'] for r in res]}")
+
+    # (a) the ranks' loss, gathered gradients and update against one process
+    parity = {}
+    for mode in ('eval', 'train'):
+        got = torch.load(work / f'parity_{mode}.pt')
+        one = ref[mode]
+        losses = [r[f'{mode}_loss'] for r in res]
+        reps = [torch.load(work / f'replicated_{mode}{r}.pt') for r in range(TP_RANKS)]
+        moves = lambda after: {n: p - one['start'][n] for n, p in after.items()}
+        parity[mode] = dict(
+            loss=losses[0], one_process_loss=one['loss'],
+            loss_rel=abs(losses[0] - one['loss']) / abs(one['loss']),
+            grad_rel_l2=dict_rel_l2(got['grads'], one['grads']),
+            update_rel_l2=dict_rel_l2(moves(got['after']), moves(one['after'])),
+            losses_equal_across_ranks=all(v == losses[0] for v in losses),
+            replicated=len(reps[0]),
+            replicated_spread=max(r[f'{mode}_spread']['max'] for r in res),
+            spread_by_rank=[r[f'{mode}_spread'] for r in res],
+            replicated_equal_across_ranks=all(
+                torch.equal(reps[0][k], v) for rep in reps[1:] for k, v in rep.items()))
+    out = dict(ranks=TP_RANKS, ranks_s=ranks_s, load_s=[r['load_s'] for r in res],
+               sharded_leaves=res[0]['sharded_leaves'], parity=parity)
+    print(f'tp {TP_RANKS} model ranks (gloo, one card), parity f32 at batch {TP_PARITY_BATCH}: '
+          + json.dumps(parity) + f' (gates: loss {TOL_TP_LOSS}, gradients {TOL_TP_GRAD}, '
+          f"update {TOL_TP_UPDATE}, replicated spread {TOL_TP_SPREAD})", flush=True)
+    for mode, p in parity.items():
+        check(p['losses_equal_across_ranks'], f'tp {mode}: the ranks report other losses')
+        check(p['replicated'] > 0 and p['replicated_equal_across_ranks'],
+              f'tp {mode}: replicated parameters differ across the ranks')
+        check(p['replicated_spread'] <= TOL_TP_SPREAD[mode],
+              f"tp {mode}: the ranks' replicated gradients apart {p['spread_by_rank']}")
+        check(p['loss_rel'] <= TOL_TP_LOSS[mode], f"tp {mode}: loss rel {p['loss_rel']:.3e}")
+        check(p['grad_rel_l2'] <= TOL_TP_GRAD[mode],
+              f"tp {mode}: gradients rel L2 {p['grad_rel_l2']:.3e}")
+        check(p['update_rel_l2'] <= TOL_TP_UPDATE[mode],
+              f"tp {mode}: update rel L2 {p['update_rel_l2']:.3e}")
+
+    # (b) the timed steps: the same losses on both ranks, finite
+    losses = [r['timed']['losses'] for r in res]
+    check(all(l == losses[0] for l in losses), f'tp: the ranks report other losses: {losses}')
+    out['timed'] = {r['model_rank']: {k: v for k, v in r['timed'].items()
+                                      if k not in ('launches', 'traffic')} for r in res}
+    for r in res:
+        t = r['timed']
+        print(f"tp rank {r['model_rank']} (bf16, global batch {TP_GLOBAL_BATCH}): step ms p50 "
+              f"{t['step_ms_p50']:.2f} (steps {[round(v, 2) for v in t['step_ms']]}), global "
+              f"{t['global_images_per_s']:.1f} img/s, model axis {t['model_axis_mb_per_step']:.1f} "
+              f"MB in {t['collectives_per_step']} collectives a step, their host ms p50 "
+              f"{t['collective_host_ms_p50']:.2f}, peak {t['max_memory_allocated_gib']:.2f} GiB, "
+              f"launches {t['launches']}, frozen-BN step {t['frozen']} (two ranks on one card: "
+              'shared SMs, collectives through host memory)', flush=True)
+
+    # (c) the trainer: rank 0 alone writes the standard layout, the TP
+    # resume exact, evaluate_only equal to the trainer's validation
+    ckpt = torch.load(next((work / 'trainer').glob('*/ckpts')) / 'checkpoint_1',
+                      map_location='cpu', weights_only=True)
+    standard = flagship_model(seed, device='cpu')
+    check({k: v.shape for k, v in ckpt['model'].items()}
+          == {k: v.shape for k, v in standard.state_dict().items()}
+          and [st['square_avg'].shape for _, st in sorted(ckpt['optimizer']['state'].items())]
+          == [p.shape for p in standard.parameters()],
+          'tp trainer: checkpoint_1 is not in the standard layout')
+    for r in res:
+        first, resumed = r['trainer']
+        check([h['epoch'] for h in first['history']] == [1, 2] and resumed['history'] == [],
+              f"tp rank {r['model_rank']} trainer: epochs {first['history']}, "
+              f"{resumed['history']}")
+        check(r['written'] in (['best', 'checkpoint_1', 'checkpoint_2'],
+                               ['checkpoint_1', 'checkpoint_2']),
+              f"tp rank {r['model_rank']} trainer: written {r['written']}")
+        res_ = resumed['resumed']
+        check(res_['model_equal'] and res_['optimizer_equal'] and res_['step'] == first['steps']
+              and res_['start_epoch'] == 1 and res_['sharded_leaves'] == r['sharded_leaves'],
+              f"tp rank {r['model_rank']} trainer resume: {res_}")
+        check(first['steps'] == DP_TRAINER_STEPS,
+              f"tp rank {r['model_rank']}: {first['steps']} steps")
+        total = dict(r['timed']['launches'])
+        for run in (first, resumed):
+            for c in run['counts']:
+                expect_counts(c['train'], f"tp rank {r['model_rank']} trainer train",
+                              **{k: v * run['steps'] for k, v in TRAIN_LAUNCHES.items()})
+                expect_counts(c['val'], f"tp rank {r['model_rank']} trainer val",
+                              **{k: v * run['val_batches'] for k, v in eval_launches().items()})
+                for k in total:
+                    total[k] += c['train'][k] + c['val'][k]
+        h = first['history'][0]
+        ev = r['evaluate_only']
+        e_loss, e_acc = ev['evaluate']['out']
+        rel = dict(loss=abs(e_loss - h['val_loss']) / abs(h['val_loss']),
+                   pck=abs(e_acc - h['val_acc']))
+        print(f"tp rank {r['model_rank']} trainer: epoch 1 {h['seconds']:.2f} s, train "
+              f"{h['images_per_s']:.1f} img/s, loss {h['train_loss']:.5f}, val {h['val_loss']:.5f}"
+              f" / {h['val_acc']:.4f}; epoch 2 (BN frozen) {first['history'][1]['seconds']:.2f} s;"
+              f" written {r['written']}; resumed at step {res_['step']}, tensors equal to the "
+              f"file, {res_['sharded_leaves']} leaves sharded again; evaluate_only "
+              f"{e_loss:.5f} / {e_acc:.4f} (apart {rel}) in {r['evaluate_only_s']:.1f} s",
+              flush=True)
+        check(rel['loss'] <= TOL_TP_EVALUATE_ONLY and rel['pck'] <= TOL_TP_EVALUATE_ONLY,
+              f"tp rank {r['model_rank']}: evaluate_only against the trainer's validation {rel}")
+        for k in total:
+            total[k] += r['timed']['frozen']['launches'][k] + sum(
+                e['counts'][k] for w, e in ev.items() if w != 'evaluate_official')
+        paths[f"tp_rank{r['model_rank']}"] = total
+    out['trainer'] = [dict(written=r['written'], history=r['trainer'][0]['history'],
+                           evaluate_only=r['evaluate_only']['evaluate']['out']) for r in res]
+    return out
+
+
 def profile_block(fn, what: str, unprofiled_ms: float, top: int = 14) -> None:
     """torch.profiler over one call of fn: wall time, device busy time and
     idle share (against the profiled wall, and against `unprofiled_ms`, the
@@ -3487,7 +3943,18 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         pp = pp_ranks_phase(args.seed, paths, tmp)
 
-    # 20. the kernels, with their launches on the main paths
+    # 20. the overlapped train step on the flagship at batch 64
+    raw, spec = train_data(TRAIN_BATCH)
+    overlap = overlap_phase(args.seed, raw, spec, paths)
+    del raw
+    torch.cuda.empty_cache()
+
+    # 21. tensor parallelism: the flagship over two model ranks on this card
+    # over gloo, parity, timing, the trainer CLI and evaluate_only
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = tp_ranks_phase(args.seed, paths, tmp)
+
+    # 22. the kernels, with their launches on the main paths
     for r in rows:
         r['launches'] = sum(p[r['name']] for p in paths.values())
         r['launches_by_path'] = {k: p[r['name']] for k, p in paths.items()}
@@ -3540,6 +4007,17 @@ def main(argv=None) -> int:
           f"bf16 step p50 {pp['timed'][0]['step_ms_p50']:.2f} / {pp['timed'][1]['step_ms_p50']:.2f} "
           f"ms, global {pp['timed'][0]['global_images_per_s']:.1f} img/s at batch "
           f"{PP_GLOBAL_BATCH} ({PP_M} microbatches); ranks' run {pp['ranks_s']:.1f} s", flush=True)
+    print(f"card: {card}; overlapped step (batch {TRAIN_BATCH}): p50 "
+          f"{overlap['overlapped_step_ms_p50']:.2f} ms against "
+          f"{overlap['sequential_step_ms_p50']:.2f} ms sequential", flush=True)
+    print(f"card: {card}; tensor parallel ({TP_RANKS} model ranks on this card, gloo, collectives "
+          f"through host memory): parity f32 eval/train gradients rel L2 "
+          f"{tp['parity']['eval']['grad_rel_l2']:.3e} / {tp['parity']['train']['grad_rel_l2']:.3e};"
+          f" bf16 step p50 {tp['timed'][0]['step_ms_p50']:.2f} / "
+          f"{tp['timed'][1]['step_ms_p50']:.2f} ms, global "
+          f"{tp['timed'][0]['global_images_per_s']:.1f} img/s at batch {TP_GLOBAL_BATCH}, "
+          f"{tp['timed'][0]['model_axis_mb_per_step']:.1f} MB a step over the model axis; "
+          f"ranks' run {tp['ranks_s']:.1f} s", flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(f'total {time.time() - t_start:.1f} s', flush=True)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': kind,

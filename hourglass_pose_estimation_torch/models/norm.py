@@ -17,8 +17,9 @@ variance, and it has no sampled statistics.
 
 Cross-rank statistics (`axis_name='data'`, set on a built model by
 `sync_batch_norm`; flax's `axis_name`): a train-mode forward averages the
-one-pass (mean, E[x^2]) over the data-parallel process group (the default
-group: data parallelism is the port's only axis) before it forms the
+one-pass (mean, E[x^2]) over the data group (`group`: the mesh's data
+group, `parallel.make_mesh`'s `Mesh.group`, or None for the default
+process group when every rank is a data rank) before it forms the
 variance, as `jax.lax.pmean` does in the JAX BatchNorm, so every rank
 normalises with, and moves its running averages by, the global batch's
 statistics. The average is differentiable: its backward is the transpose
@@ -28,14 +29,22 @@ With `stat_samples=k` the rows follow the path (`sync_batch_norm`'s
 (shard_map) path each rank takes its own first k samples before the
 average, as each JAX shard slices its own; on the implicit (jit) path the
 statistics are the GLOBAL batch's first k samples, as JAX's `x[:k]` on a
-batch that jit shards: rank r (b rows) contributes its rows
+batch that jit shards: data coordinate r (its rank in the data group; b
+rows) contributes its rows
 [0, clamp(k - r*b, 0, b)), and the sums (sum x, sum x^2) of every rank's
 rows, all-reduced, are divided by k (the same differentiable all-reduce,
 in its sum form; a rank with no rows in the first k contributes zeros and
 still issues it, so every rank issues the same collectives in the same
-order, a remat's recomputation included). At world size 1, or with no
-process group, the forward is the unsynced one. Eval mode never
-communicates.
+order, a remat's recomputation included). Under tensor parallelism every
+model rank of a data coordinate holds the same rows, so the data group,
+not the process group, is what a sum may count once. At a data group of
+one rank, or with no process group, the forward is the unsynced one. Eval
+mode never communicates.
+
+The forward reads its affine parameters and running statistics through
+`_affine` and `_running_stats` and moves the statistics through
+`_update_running`, which a sharded BatchNorm
+(`parallel/tensor_parallel.py`) overrides.
 
 `update_stats = False` (see `running_stats_frozen`) keeps the running
 averages as they are in train mode: a rematerialised forward recomputes
@@ -51,15 +60,15 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-# the port's one mesh axis: data parallelism over the default process group
+# the mesh axis BatchNorm statistics sync over: data parallelism
 DATA_AXIS = 'data'
 
 
-def _data_world_size() -> int:
-    """Ranks of the data-parallel group: the default process group's size,
-    1 when there is none."""
+def _data_world_size(group) -> int:
+    """Ranks of the data group (None: the default process group), 1 when
+    there is no process group."""
     if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
+        return dist.get_world_size(group)
     return 1
 
 
@@ -69,19 +78,19 @@ class _MeanOverRanks(torch.autograd.Function):
     psum, whose transpose is a psum too."""
 
     @staticmethod
-    def forward(ctx, x, mean: bool = True):
-        ctx.mean = mean
-        return _all_reduce(x, mean)
+    def forward(ctx, x, mean: bool = True, group=None):
+        ctx.mean, ctx.group = mean, group
+        return _all_reduce(x, mean, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.mean), None
+        return _all_reduce(g, ctx.mean, ctx.group), None, None
 
 
-def _all_reduce(x: torch.Tensor, mean: bool) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, mean: bool, group) -> torch.Tensor:
     y = x.contiguous().clone()
-    dist.all_reduce(y)
-    return y / dist.get_world_size() if mean else y
+    dist.all_reduce(y, group=group)
+    return y / dist.get_world_size(group) if mean else y
 
 
 class BatchNorm(nn.Module):
@@ -103,6 +112,7 @@ class BatchNorm(nn.Module):
         self.update_stats = True
         self.axis_name = None
         self.global_rows = False
+        self.group = None
 
     def set_axis_name(self, axis_name) -> None:
         """Sync the train-mode statistics over `axis_name` ('data'), or not
@@ -120,10 +130,19 @@ class BatchNorm(nn.Module):
             if self.update_stats:
                 self._update_running(mean, var)
         else:
-            mean, var = self.running_mean, self.running_var
-        mul = self.weight.to(sdt) * torch.rsqrt(var.to(sdt) + self.eps)
+            mean, var = self._running_stats()
+        weight, bias = self._affine()
+        mul = weight.to(sdt) * torch.rsqrt(var.to(sdt) + self.eps)
         return ((x.to(sdt) - mean.to(sdt).view(shape))
-                * mul.view(shape) + self.bias.to(sdt).view(shape))
+                * mul.view(shape) + bias.to(sdt).view(shape))
+
+    def _affine(self):
+        """(scale, bias) over every channel."""
+        return self.weight, self.bias
+
+    def _running_stats(self):
+        """(running mean, running variance) over every channel."""
+        return self.running_mean, self.running_var
 
     def _batch_stats(self, x: torch.Tensor, sdt):
         """(mean, biased variance) of the train-mode statistics' rows."""
@@ -131,7 +150,7 @@ class BatchNorm(nn.Module):
         if self.axis_name is not None and not self.fast_variance:
             raise ValueError('fast_variance=False is a single-shard numerical-parity '
                              'mode; axis_name sync needs the one-pass form')
-        world = _data_world_size() if self.axis_name is not None else 1
+        world = _data_world_size(self.group) if self.axis_name is not None else 1
         if world == 1:
             xs = (x[:k] if 0 < k < x.shape[0] else x).to(sdt)
             mean = xs.mean(dim=axes)
@@ -141,14 +160,15 @@ class BatchNorm(nn.Module):
         b = x.shape[0]
         if self.global_rows and 0 < k < world * b:
             # the global batch's first k rows: this rank's share of them
-            n = min(max(k - dist.get_rank() * b, 0), b)
+            n = min(max(k - dist.get_rank(self.group) * b, 0), b)
             xs = x[:n].to(sdt)
             sums = torch.stack([xs.sum(dim=axes), xs.square().sum(dim=axes)])
-            mean, mean2 = _MeanOverRanks.apply(sums, False) / (k * x.shape[2] * x.shape[3])
+            mean, mean2 = (_MeanOverRanks.apply(sums, False, self.group)
+                           / (k * x.shape[2] * x.shape[3]))
         else:
             xs = (x[:k] if 0 < k < b else x).to(sdt)
             mean, mean2 = _MeanOverRanks.apply(
-                torch.stack([xs.mean(dim=axes), xs.square().mean(dim=axes)]))
+                torch.stack([xs.mean(dim=axes), xs.square().mean(dim=axes)]), True, self.group)
         return mean, torch.clamp_min(mean2 - mean.square(), 0.0)
 
     @torch.no_grad()
@@ -174,15 +194,18 @@ def running_stats_frozen(module: nn.Module, frozen: bool = True):
 
 
 def sync_batch_norm(module: nn.Module, axis_name=DATA_AXIS,
-                    global_rows: bool = False) -> nn.Module:
+                    global_rows: bool = False, group=None) -> nn.Module:
     """Set `axis_name` on every BatchNorm under `module` (None: no sync):
     the one switch of global-batch statistics that both data-parallel
     paths and `hg(bn_axis_name=...)` use, for any architecture.
     `global_rows` picks the rows of sampled statistics (`stat_samples`):
     the global batch's first k (the implicit path's, JAX's jit) or each
-    rank's first k (False, the explicit path's, JAX's shard_map)."""
+    rank's first k (False, the explicit path's, JAX's shard_map). `group`
+    is the data group to sync over (the mesh's `group`; None: the default
+    process group)."""
     for m in module.modules():
         if isinstance(m, BatchNorm):
             m.set_axis_name(axis_name)
             m.global_rows = global_rows
+            m.group = group
     return module

@@ -14,7 +14,11 @@ whole; every rank restores from the file. A pipeline-parallel state
 layout, with its optimizer state as {'stem', 'stack'} (the JAX Trainer's
 `_ckpt_view`): every rank takes part in gathering it (`checkpoint_state`,
 a collective), rank 0 writes it, and a resume splits it again
-(`restore_state`).
+(`restore_state`). A tensor-parallel state (`parallel.tensor_parallel.
+ShardedTrainState`) is saved in the standard layout too, its parameters,
+statistics and RMSprop accumulators gathered over the model group, and a
+resume shards it again (JAX `_place_state`): a checkpoint of a run with or
+without tensor parallelism resumes the other.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from hourglass_pose_estimation_torch.runner.train_state import TrainState
 
 def save(path: str, state: TrainState, epoch: int, best_acc: float) -> None:
     """Save state + metadata as the file `path` (rank 0's, then a barrier
-    of every rank, under a process group); `state` is a TrainState or a
-    PipelineState."""
+    of every rank, under a process group); `state` is a TrainState, a
+    ShardedTrainState or a PipelineState."""
     distributed = dist.is_available() and dist.is_initialized()
     if hasattr(state, 'checkpoint_state'):
         model, optimizer = state.checkpoint_state()
@@ -104,15 +108,15 @@ def load_optimizer(optimizer: torch.optim.Optimizer, saved: Optional[dict], tx,
 
 def restore(path: str, state: TrainState) -> Dict[str, Any]:
     """Restore into `state` (a TrainState: its model and optimizer, in
-    place, on the model's device; or a PipelineState, split) -> {'state',
-    'epoch', 'best_acc'}.
+    place, on the model's device; a ShardedTrainState, sharded; or a
+    PipelineState, split) -> {'state', 'epoch', 'best_acc'}.
 
     An optimizer state of another layout (another optimizer, another
     parameter grouping, the other of the standard and pipeline layouts)
     gives a fresh optimizer, with the parameters, statistics and step
     restored and a printed line. A file that does not load, or whose model
     state does not match, raises its own error."""
-    module = state.stem if hasattr(state, 'restore_state') else state.model
+    module = state.stem if hasattr(state, 'stem') else state.model
     payload = _load(path, next(module.parameters()).device)
     if hasattr(state, 'restore_state'):
         state.restore_state(payload['model'], payload['optimizer'])

@@ -2,9 +2,10 @@
 
 Port of `hourglass_pose_estimation_tpu/runner/train_state.py`
 (`make_optimizer`, `TrainState`, `init_state`, `make_train_step`,
-`make_eval_step`). One train step runs, on the model's device: the
-augmentation and target render (device pipeline), the forward, the
-per-stack weighted MSE, the backward, the RMSprop update and PCK.
+`make_stage_fn`, `make_overlapped_train_step`, `make_eval_step`). One
+train step runs, on the model's device: the augmentation and target
+render (device pipeline), the forward, the per-stack weighted MSE, the
+backward, the RMSprop update and PCK.
 
 Optimizer: `torch.optim.RMSprop(alpha=0.99, eps=1e-8, momentum=0)`, eps
 outside the sqrt (u = g / (sqrt(E[g^2]) + eps)), which is the optax chain
@@ -30,6 +31,21 @@ the order of the sums. DDP keeps its buffers as they are
 (`broadcast_buffers=False`): synced statistics are the same on every rank.
 The eval step also returns its sums (`loss_sum`, `n`, `hit`, `joints`),
 which the Trainer all-reduces.
+
+Under tensor parallelism (a (data x model) mesh and a model of
+`parallel.tensor_parallel.shard_model`) the same step runs on every rank:
+`mesh.world`/`mesh.rank` are the DATA coordinates, so every model rank of a
+data coordinate draws and augments the same rows of the global batch (their
+replicated compute stays the same), DDP and the metrics' all-reduce run
+over the data group (`mesh.group`), and the sharded layers' collectives
+over the model group.
+
+The overlapped step (`make_overlapped_train_step`) stages batch N+1 (the
+augmentation and target render of the next raw batch) while it steps
+batch N: on the card on a side CUDA stream, ordered before the next step's
+use by an event, in sequence on the CPU; the augmentation of the batch a
+step consumes at `state.step` = s is drawn from step s's generator, as the
+sequential step draws it.
 """
 
 from __future__ import annotations
@@ -42,6 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.data.pipeline import (
     augment_batch, sample_augmentations, to_device)
 from hourglass_pose_estimation_torch.loss import heatmap_mse_loss
@@ -140,7 +157,8 @@ def step_metrics(loss: torch.Tensor, heatmaps: torch.Tensor, target: torch.Tenso
 
 
 def _replica(state: TrainState, mesh):
-    """The state's DistributedDataParallel wrapper over the mesh's group."""
+    """The state's DistributedDataParallel wrapper over the mesh's data
+    group (under tensor parallelism the ranks of this model coordinate)."""
     if state.ddp is None or state.ddp.module is not state.model:
         from torch.nn.parallel import DistributedDataParallel as DDP
         dev = mesh.device
@@ -190,6 +208,76 @@ def make_train_step(spec, *, subset=None, pck_thr=0.5, device_pipeline=True,
             metrics = step_metrics(loss, outs[-1], target, pck_thr, mesh)
         state.step += 1
         return state, metrics
+
+    return train_step
+
+
+# keys of a staged (augmented) batch as the model and the loss consume it
+STAGED_KEYS = ('image', 'target', 'target_weight')
+
+
+def _stage(spec, batch, rng: int, step: int, train: bool, device) -> dict:
+    data = to_device(batch, device)
+    draws = (_global_draws(spec, rng, step, data['scale'], None) if train else
+             sample_augmentations(None, data['scale'], scale_factor=spec.scale_factor,
+                                  rot_factor=spec.rot_factor, train=False))
+    data = augment_batch(data, draws, spec, train)
+    return {k: data[k] for k in STAGED_KEYS}
+
+
+def make_stage_fn(spec, *, train=True, device='cuda'):
+    """The augment-only step that primes the overlapped step:
+    stage(raw_batch, rng, step) -> {'image', 'target', 'target_weight'} on
+    `device` (the card unless the caller asks for the CPU), drawn from step
+    `step`'s generator (`step_generator`), as the train step draws them,
+    so the overlapped and the sequential steps consume one augmentation
+    stream."""
+    dev = resolve_device(device)
+
+    def stage(batch, rng, step):
+        return _stage(spec, batch, rng, step, train, dev)
+
+    return stage
+
+
+def make_overlapped_train_step(spec, *, subset=None, pck_thr=0.5):
+    """The train step that stages the next batch while it steps this one:
+    (state, staged, raw_next, rng) -> (state, staged_next, metrics).
+
+    `staged` is batch N, staged by `make_stage_fn` or by the previous call,
+    and is stepped by make_train_step(spec, device_pipeline=False); raw_next
+    is the next raw canvas batch, augmented (draws from step state.step +
+    1's generator) and its targets rendered on a side CUDA stream that the
+    step's forward and backward on the current stream do not wait for; the
+    current stream waits for the staging (an event) only when this call
+    returns, and the staged tensors are marked as used on it
+    (`record_stream`), so the allocator keeps them until the next step is
+    done with them. On the CPU the staging runs first, in sequence. The
+    kernels of the staging (the render, the warp's ops) launch on the side
+    stream they are given. Drain the last staged batch with
+    make_train_step(spec, device_pipeline=False)."""
+    step = make_train_step(spec, subset=subset, pck_thr=pck_thr, device_pipeline=False)
+    side = {}
+
+    def train_step(state: TrainState, staged, raw_next, rng):
+        dev = _device_of(state)
+        if dev.type != 'cuda':
+            nxt = _stage(spec, raw_next, rng, state.step + 1, True, dev)
+            state, metrics = step(state, staged, rng)
+            return state, nxt, metrics
+        if dev not in side:
+            side[dev] = torch.cuda.Stream(dev)
+        stream = side[dev]
+        with torch.cuda.stream(stream):
+            nxt = _stage(spec, raw_next, rng, state.step + 1, True, dev)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        state, metrics = step(state, staged, rng)
+        current = torch.cuda.current_stream(dev)
+        current.wait_event(ready)
+        for t in nxt.values():
+            t.record_stream(current)
+        return state, nxt, metrics
 
     return train_step
 

@@ -62,7 +62,23 @@ step, its rows divided over every rank and its sums all-reduced over all
 of them. Checkpoints are merged, in the standard layout, with the
 optimizer state as {'stem', 'stack'} (`runner/checkpoint.py`); a pipeline
 resume splits them again, and either layout resumes the other with a
-fresh optimizer. Tensor parallelism is refused with ROADMAP item 13c.
+fresh optimizer.
+
+Tensor parallelism over conv output channels (`TRAIN.model_parallel` = T >
+1, the JAX Trainer's 'model' mesh axis; `parallel/tensor_parallel.py`):
+the ranks form a (data x model) layout (rank = d * T + m), the model is
+built from COMMON.seed as without it and then sharded by the JAX rule
+(`shard_model`: this rank's slice of every conv with 128 or more output
+channels and of its BatchNorm), its RMSprop accumulators made from the
+shards, DDP and the BatchNorm statistics over the data group; every model
+rank of a data coordinate steps the same rows. The frozen-BN phase takes
+the standard blocks (a sharded block does not fuse). Validation gathers
+the parameters and statistics into a standard-layout replica once a pass
+and runs the standard eval step on it (the fused bottleneck and the decode
+as without tensor parallelism), its rows over every rank; checkpoints are
+the standard layout, the accumulators gathered too, and a resume shards
+them again, so a run with or without tensor parallelism resumes the
+other's. The explicit step refuses it (the config), as does the pipeline.
 """
 
 from __future__ import annotations
@@ -117,13 +133,9 @@ def refuse_pipeline(cfg: Config, world: int) -> None:
                          f'data_parallel*microbatches = {dp * tc.microbatches}')
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise NotImplementedError for the parallelism not ported yet, and
-    ValueError for what the explicit step does not take."""
+def refuse_explicit(cfg: Config) -> None:
+    """Raise ValueError for what the explicit step does not take."""
     tc = cfg.train
-    if tc.model_parallel > 1:
-        raise NotImplementedError(f'TRAIN.model_parallel={tc.model_parallel}: tensor '
-                                  'parallelism is not ported yet (ROADMAP Queue 1 item 13c)')
     if tc.explicit_collectives and not cfg.dataset.device_pipeline:
         raise ValueError('TRAIN.explicit_collectives requires DATASET.device_pipeline=True')
     if tc.explicit_collectives and tc.freeze_bn_after_epoch:
@@ -147,7 +159,7 @@ class Trainer:
         self.pp = 1 if eval_only else tc.pipeline_parallel
         if self.pp > 1:
             refuse_pipeline(cfg, dist.get_world_size() if dist.is_initialized() else 1)
-        refuse_unported(cfg)
+        refuse_explicit(cfg)
         self.mesh = (local_mesh(device) if eval_only else
                      make_mesh(tc.data_parallel, tc.model_parallel, device, self.pp))
         self.device = self.mesh.device
@@ -167,12 +179,13 @@ class Trainer:
         # global-batch statistics on the implicit path for any architecture
         # (JAX's jit over a sharded batch computes them, its sampled ones
         # from the global batch's first rows), and on the explicit one under
-        # TRAIN.sync_bn (JAX's bn_axis_name='data', each shard's rows); the
-        # pipeline's are per microbatch, unsynced (JAX builds its stem and
-        # stack with no bn_axis_name)
+        # TRAIN.sync_bn (JAX's bn_axis_name='data', each shard's rows), over
+        # the data group; the pipeline's are per microbatch, unsynced (JAX
+        # builds its stem and stack with no bn_axis_name)
         if (self.pp == 1 and self.mesh.group is not None
                 and (not tc.explicit_collectives or tc.sync_bn)):
-            sync_batch_norm(self.model, global_rows=not tc.explicit_collectives)
+            sync_batch_norm(self.model, global_rows=not tc.explicit_collectives,
+                            group=self.mesh.group)
 
         ds_kwargs = dict(image_path=dc.image_path,
                          annotation_path=dc.annotation_path,
@@ -196,7 +209,19 @@ class Trainer:
         self.steps_per_epoch = min(steps_per_epoch, len(self.train_loader))
         self.tx = make_optimizer(tc.learning_rate, tc.schedule, tc.gamma,
                                  self.steps_per_epoch)
-        if self.pp > 1:
+        # the standard model's numbers, before any sharding
+        self._log(f"==> model '{mc.arch}', stacks={mc.num_stacks}, "
+                  f'params={count_params(self.model):,}, device={self.device}, '
+                  f'mesh={self.mesh.shape}')
+        if cfg.common.summary:
+            self._log(summarize(self.model))
+        if self.mesh.model > 1:
+            from hourglass_pose_estimation_torch.parallel.tensor_parallel import (
+                ShardedTrainState)
+            # the model as built from the seed, sharded in place (a standard
+            # replica kept for validation and checkpoints)
+            self.state = ShardedTrainState.create(self.model, self.tx, self.mesh)
+        elif self.pp > 1:
             from hourglass_pose_estimation_torch.parallel.pipeline import (
                 PipelineState, stage_of)
             # the stage holds the model's own stem and stacks: the standard
@@ -205,11 +230,6 @@ class Trainer:
                                               self.mesh, mc.num_stacks)
         else:
             self.state = init_state(self.model, self.tx)
-        self._log(f"==> model '{mc.arch}', stacks={mc.num_stacks}, "
-                  f'params={count_params(self.model):,}, device={self.device}, '
-                  f'mesh={self.mesh.shape}')
-        if cfg.common.summary:
-            self._log(summarize(self.model))
         self.start_epoch = 0
         self.best_acc = 0.0
         self.history = []        # one dict of numbers per epoch run
@@ -378,7 +398,12 @@ class Trainer:
         """The state validation runs: under pipeline parallelism the merged
         model, in the standard eval step. The stem and this stage's stacks
         are the model's own modules; the other stages' stacks are gathered
-        into it (a collective of every pipe group)."""
+        into it (a collective of every pipe group). Under tensor parallelism
+        the standard replica with the gathered parameters and statistics (a
+        collective of every model group)."""
+        if self.mesh.model > 1:
+            return TrainState(model=self.state.standard_model(), tx=self.tx, optimizer=None,
+                              step=self.state.step)
         if self.pp == 1:
             return self.state
         self.model.load_state_dict(self.state.hourglass_state())

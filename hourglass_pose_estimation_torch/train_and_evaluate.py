@@ -21,7 +21,9 @@ Training on N ranks, one process a rank (`parallel/`):
 NCCL, each rank on cuda:LOCAL_RANK; `--backend gloo` runs several ranks on
 one card (with `--device cuda:0`) or on the CPU (`--device cpu`, gloo
 there always). `TRAIN.pipeline_parallel=P TRAIN.microbatches=M` splits the
-hg stacks over P stages of each data rank (N = data_parallel * P ranks).
+hg stacks over P stages of each data rank (N = data_parallel * P ranks);
+`TRAIN.model_parallel=T` splits each conv of 128 or more output channels
+over T model ranks of each data rank (N = data_parallel * T ranks).
 `COMMON.evaluate_only` under torchrun does what the JAX script does: it
 initialises the process group, then runs the single-device Evaluator in
 every process on the whole validation set; rank 0 alone prints (the lines

@@ -13,7 +13,10 @@ walk: the path joins with '.', and the leaf renames as
 `to_jax_variables` is the inverse walk, so a trained port model can be
 compared leaf by leaf under the flax names. `load_jax_pipeline_variables`
 fills a pipeline stage (`HourglassStem` and `HourglassStack`s) from the
-JAX pipeline's (stem, stacked) trees.
+JAX pipeline's (stem, stacked) trees. With a (data x model) `mesh`,
+`load_jax_variables` fills a tensor-parallel model
+(`parallel.tensor_parallel.shard_model`'s) with this rank's slice of each
+leaf the rule shards.
 """
 
 from __future__ import annotations
@@ -40,11 +43,15 @@ def _walk(node, path=()):
             yield path, str(key), val
 
 
-def load_jax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
+def load_jax_variables(model: torch.nn.Module, variables, mesh=None) -> torch.nn.Module:
     """Fill `model` in place from a JAX `{'params', 'batch_stats'}` tree
     (nested dicts of numpy arrays). Strict: any leaf without a port
     counterpart, any port tensor left unfilled and any shape mismatch
-    raises KeyError listing them all. Returns the model."""
+    raises KeyError listing them all. With a `mesh` whose model axis is
+    more than 1, `model` is sharded (`shard_model`) and each tensor takes
+    this rank's slice of its leaf (`parallel.shard_params`). Returns the
+    model."""
+    from hourglass_pose_estimation_torch.parallel.mesh import shard_params
     target = model.state_dict()
     filled, problems = set(), []
     for coll in ('params', 'batch_stats'):
@@ -58,6 +65,8 @@ def load_jax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
             arr = np.array(val, dtype=np.float32)      # a writable copy
             if leaf == 'kernel':
                 arr = arr.transpose(3, 2, 0, 1)
+            if mesh is not None:
+                arr = shard_params({key: torch.from_numpy(arr)}, mesh)[key].numpy()
             if tuple(arr.shape) != tuple(target[key].shape):
                 problems.append(f'shape mismatch {where} {arr.shape} vs '
                                 f'{key} {tuple(target[key].shape)}')

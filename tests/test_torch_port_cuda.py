@@ -414,6 +414,83 @@ def test_pipeline_step_on_two_ranks_launches_the_kernels(dev, tmp_path, backend)
                                      render_gaussian=1), g
 
 
+def test_overlapped_step_stages_on_a_side_stream(dev):
+    """The overlapped step (`make_overlapped_train_step`) stages batch N+1 on
+    its side stream while it steps batch N: read on the current stream with
+    no synchronisation, each staged batch equals the sequential
+    augmentation of that batch (the same step generator), so the event
+    orders it; the losses equal the sequential step's (the step on the card
+    is deterministic), and the staging's render runs on the side stream
+    (one render a batch, the drain's none)."""
+    import copy
+    from hourglass_pose_estimation_torch.runner.train_state import (
+        STAGED_KEYS, make_overlapped_train_step, make_stage_fn)
+    ds = Synthetic(True, num_samples=12, inp_res=64, out_res=16, sigma=1, scale_factor=0.25,
+                   rot_factor=30)
+    spec = make_spec(ds)
+    raws = [ds.canvas_batch(range(i * 4, i * 4 + 4), canvas=64) for i in range(3)]
+    torch.manual_seed(0)
+    model = get_model('hg', device=dev, num_stacks=1, num_classes=16, fuse_block=True,
+                      fuse_upsample=True)
+    tx = make_optimizer(2.5e-4, [], 0.1, 10)
+    seq_state, state = init_state(copy.deepcopy(model), tx), init_state(model, tx)
+    seq, stage = make_train_step(spec), make_stage_fn(spec, device=dev)
+    seq_losses = [float(seq(seq_state, raw, 5)[1]['loss']) for raw in raws]
+    ostep, drain = make_overlapped_train_step(spec), make_train_step(spec, device_pipeline=False)
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+    staged, losses = stage(raws[0], 5, 0), []
+    for i, raw in enumerate(raws[1:], 1):
+        state, staged, m = ostep(state, staged, raw, 5)
+        losses.append(float(m['loss']))
+        ref = stage(raw, 5, i)
+        assert all(torch.equal(staged[k], ref[k]) for k in STAGED_KEYS), i
+    state, m = drain(state, staged, 5)
+    losses.append(float(m['loss']))
+    assert state.step == 3
+    assert losses == seq_losses, (losses, seq_losses)
+    # renders: the prime, 2 overlapped stagings and the 2 re-stagings above
+    assert render_gaussian.launches == 5
+
+
+@pytest.mark.parametrize('backend', ['gloo', 'nccl'])
+def test_tensor_parallel_step_on_two_ranks_launches_the_kernels(dev, tmp_path, backend):
+    """Two tensor-parallel ranks (data 1 x model 2,
+    tests/torch_port_tp_ranks.py --card): over gloo both on this card (every
+    collective through host memory), over NCCL one on each of two cards (it
+    skips with fewer). One train step of a 1-stack bf16 model with the
+    kernels: the loss is the same on both ranks, leaves are sharded, the
+    model axis's collectives ran, and every rank, which sees the full
+    activations, launches the one-process step's kernels: 4 merges, 1 stem
+    and 4 encoder pools, each forward and backward, and 1 render."""
+    if backend == 'nccl' and torch.cuda.device_count() < 2:
+        pytest.skip('the NCCL layout needs two CUDA devices')
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo), WORLD_SIZE='2', MASTER_ADDR='127.0.0.1',
+               MASTER_PORT=str(port))
+    procs = [subprocess.Popen([sys.executable, str(repo / 'tests' / 'torch_port_tp_ranks.py'),
+                               '--card', backend, str(tmp_path)],
+                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    logs = [proc.communicate(timeout=600)[0].decode(errors='replace') for proc in procs]
+    assert all(proc.returncode == 0 for proc in procs), logs
+    got = [json.loads((tmp_path / f'card{r}.json').read_text()) for r in range(2)]
+    assert [g['model_rank'] for g in got] == [0, 1]
+    assert [g['device'] for g in got] == (['cuda:0', 'cuda:0'] if backend == 'gloo'
+                                          else ['cuda:0', 'cuda:1'])
+    assert got[0]['loss'] == got[1]['loss'] and np.isfinite(got[0]['loss'])
+    for g in got:
+        assert g['sharded_leaves'] > 0 and g['collectives'] > 0
+        assert g['launches'] == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
+                                     upsample2x_add=4, decode_peaks=0, upsample2x_add_bwd=4,
+                                     maxpool2x2_fwd=5, maxpool2x2_bwd=0,
+                                     maxpool2x2_bwd_first=5, render_gaussian=1), g
+
+
 def test_trainer_stages_batches_on_a_side_stream(dev, tmp_path):
     """The Trainer's producer copies pinned canvases on its copy stream; the
     consumer's stream waits for that copy, and the tensors equal the host

@@ -123,6 +123,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pipe(device='cuda')
     assert next(pipe().stem.parameters()).device.type == 'cpu'    # the mesh's device
+    from hourglass_pose_estimation_torch.runner.train_state import make_stage_fn
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_stage_fn(None)
+    make_stage_fn(None, device='cpu')
     from hourglass_pose_estimation_torch import serve_http
     cfg = tmp_path / 'c.yaml'
     cfg.write_text('MODEL:\n  num_stacks: 1\n')

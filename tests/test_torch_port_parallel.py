@@ -517,7 +517,8 @@ def test_ranks_import_no_jax(run):
 def test_mesh_in_one_process():
     """No process group: one rank, no group; data_parallel=2 cannot be met
     (JAX's make_mesh asserts a mesh larger than the devices), nor can
-    pipeline_parallel=2; tensor parallelism waits for item 13c."""
+    pipeline_parallel=2 or model_parallel=2 (the (data x model) layout on
+    its ranks: test_torch_port_tensor_parallel.py)."""
     mesh = make_mesh(0, 1, 'cpu')
     assert (mesh.world, mesh.rank, mesh.device.type, mesh.group) == (1, 0, 'cpu', None)
     assert (mesh.shape, mesh.process_rank, mesh.size) == (
@@ -527,7 +528,7 @@ def test_mesh_in_one_process():
         make_mesh(2, 1, 'cpu')
     with pytest.raises(ValueError, match='needs 2 ranks'):
         make_mesh(0, 1, 'cpu', pipeline_parallel=2)
-    with pytest.raises(NotImplementedError, match='item 13c'):
+    with pytest.raises(ValueError, match='needs 2 ranks'):
         make_mesh(0, 2, 'cpu')
 
 

@@ -342,7 +342,7 @@ def test_cli_trains_on_the_cpu_when_asked(tmp_path, capsys):
                  id='TRAIN.pipeline_parallel=2-item 13'),
     pytest.param('TRAIN.explicit_collectives=true', None, None,
                  id='TRAIN.explicit_collectives=true-item 13'),
-    pytest.param('TRAIN.model_parallel=2', NotImplementedError, 'item 13c',
+    pytest.param('TRAIN.model_parallel=2', ValueError, 'model_parallel=2 needs 2 ranks',
                  id='TRAIN.model_parallel=2-item 13'),
     pytest.param('TRAIN.data_parallel=2', ValueError, 'world size 1',
                  id='TRAIN.data_parallel=2-item 13')])
@@ -350,9 +350,10 @@ def test_trainer_refuses_what_one_card_lacks(tmp_path, override, error, match):
     """In one process: pipeline parallelism (item 13b) refuses this
     config's one stack over 2 stages, as the JAX Trainer does (its other
     refusals, and the ranks it needs, are in test_torch_port_pipeline.py);
-    tensor parallelism waits for item 13c; data_parallel=2 asks for more
-    ranks than the world has; the explicit-collectives step runs, at world
-    size 1."""
+    tensor parallelism (item 13c) and data_parallel=2 ask for more ranks
+    than the world has (tensor parallelism on its ranks:
+    test_torch_port_tensor_parallel.py); the explicit-collectives step
+    runs, at world size 1."""
     cfg = tconfig.load_config(raw=_raw_cfg(tmp_path), overrides=[override])
     if error is not None:
         with pytest.raises(error, match=match):
