@@ -1105,15 +1105,15 @@ def set_switches(model, on: bool):
 
 
 def zero_counts() -> None:
-    from hourglass_pose_estimation_torch.ops.hopper import KERNEL_WRAPPERS, fused_bottleneck
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    from hourglass_pose_estimation_torch.ops.hopper import fused_bottleneck
+    from hourglass_pose_estimation_torch.utils import tracing
+    tracing.reset()
     fused_bottleneck.backward_calls = 0
 
 
 def read_counts() -> dict:
-    from hourglass_pose_estimation_torch.ops.hopper import KERNEL_WRAPPERS
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    from hourglass_pose_estimation_torch.ops.hopper import launch_counts
+    return launch_counts()
 
 
 def fused_name(impl: str = None) -> str:
@@ -3392,8 +3392,8 @@ def tp_rank(work: str, seed: int) -> int:
     from hourglass_pose_estimation_torch.parallel import (
         ShardedTrainState, gather_params, make_mesh, maybe_initialize_distributed,
         sync_batch_norm)
-    from hourglass_pose_estimation_torch.parallel import tensor_parallel as tpl
     from hourglass_pose_estimation_torch.runner import make_optimizer, make_train_step
+    from hourglass_pose_estimation_torch.utils import tracing
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     work = Path(work)
@@ -3444,15 +3444,24 @@ def tp_rank(work: str, seed: int) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    # the collectives' spans give their host time (those of the backward
+    # open on autograd's device thread, outside the step's spans: taken by
+    # their host interval)
+    tracing.enable()
     losses, times, traffic = [], [], []
     for _ in range(TP_WARMUP + TP_TIMED):
-        tpl.TRAFFIC.reset()
+        before, ns0 = tracing.counters(), time.time_ns()
         t0 = time.perf_counter()
         state, m = step(state, raw, seed)
         losses.append(float(m['loss']))
         times.append(time.perf_counter() - t0)
-        traffic.append(dict(calls=tpl.TRAFFIC.calls, bytes=tpl.TRAFFIC.bytes,
-                            ms=tpl.TRAFFIC.seconds * 1e3))
+        after, ns1 = tracing.counters(), time.time_ns()
+        traffic.append(dict(
+            calls=after['tp.collective_calls'] - before.get('tp.collective_calls', 0),
+            bytes=after['tp.collective_bytes'] - before.get('tp.collective_bytes', 0),
+            ms=sum(x['end_ns'] - x['start_ns'] for x in tracing.spans()
+                   if x['name'] == 'tp.collective' and ns0 <= x['start_ns'] <= ns1) * 1e-6))
+    tracing.disable()
     counts = read_counts()
     n = TP_WARMUP + TP_TIMED
     expect_counts(counts, f'tp rank {rank}: {n} steps',

@@ -7,8 +7,9 @@ counted on the CPU.
 Starts two gloo ranks on the CPU (each a process of its own, a data 1 x
 model 2 layout) and runs one train step of the hourglass (bf16, 128
 features, the device pipeline) for each stack count, counting what
-`parallel/tensor_parallel.py`'s collectives move (`TRAFFIC`: calls, and
-the bytes of their results on a rank). The counts depend on the shapes
+`parallel/tensor_parallel.py`'s collectives move (the `utils.tracing`
+counters `tp.collective_calls` and `tp.collective_bytes`, of their results
+on a rank). The counts depend on the shapes
 only, not on the device, so two stack counts give the stem's share and a
 stack's, and from them the flagship's (8 stacks) at any batch: bytes scale
 with the batch, the calls do not. Prints one JSON line. No time is
@@ -35,8 +36,8 @@ def rank_main(args) -> None:
     from hourglass_pose_estimation_torch.models import get_model
     from hourglass_pose_estimation_torch.parallel import (
         ShardedTrainState, make_mesh, maybe_initialize_distributed)
-    from hourglass_pose_estimation_torch.parallel import tensor_parallel as tpl
     from hourglass_pose_estimation_torch.runner import make_optimizer, make_train_step
+    from hourglass_pose_estimation_torch.utils import tracing
     torch.set_num_threads(2)
     maybe_initialize_distributed('cpu', verbose=False)
     mesh = make_mesh(1, 2, 'cpu')
@@ -49,9 +50,10 @@ def rank_main(args) -> None:
         model = get_model('hg', device='cpu', num_stacks=stacks, num_classes=16,
                           dtype=torch.bfloat16)
         state = ShardedTrainState.create(model, make_optimizer(2.5e-5, [], 0.1, 10), mesh)
-        tpl.TRAFFIC.reset()
+        tracing.reset()
         make_train_step(spec, mesh=mesh)(state, raw, 0)
-        counts[stacks] = dict(calls=tpl.TRAFFIC.calls, bytes=tpl.TRAFFIC.bytes)
+        c = tracing.counters()
+        counts[stacks] = dict(calls=c['tp.collective_calls'], bytes=c['tp.collective_bytes'])
     if mesh.model_rank == 0:
         a, b = args.stacks[0], args.stacks[-1]
         per_stack = {k: (counts[b][k] - counts[a][k]) / (b - a) for k in ('calls', 'bytes')}

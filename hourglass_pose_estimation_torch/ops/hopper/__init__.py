@@ -29,8 +29,18 @@ from hourglass_pose_estimation_torch.ops.hopper.upsample import (
     upsample2x_add, upsample2x_add_bwd, upsample2x_add_bwd_reference,
     upsample2x_add_reference, upsample2x_nearest)
 
-# every kernel's wrapper; each counts its launches in `.launches`
+from hourglass_pose_estimation_torch.utils import tracing
+
+# every kernel's wrapper; each counts its launches in the tracing counter
+# `launches.<wrapper name>`
 KERNEL_WRAPPERS = (fused_bottleneck_image, fused_bottleneck_chunked,
                    upsample2x_add, decode_peaks,
                    upsample2x_add_bwd, maxpool2x2_fwd, maxpool2x2_bwd,
                    maxpool2x2_bwd_first, render_gaussian)
+
+
+def launch_counts() -> dict:
+    """{wrapper name: its launches since the last `tracing.reset()`}, every
+    wrapper of KERNEL_WRAPPERS."""
+    counts = tracing.counters()
+    return {w.__name__: counts.get(f'launches.{w.__name__}', 0) for w in KERNEL_WRAPPERS}

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from hourglass_pose_estimation_torch.ops.hopper import _build
+from hourglass_pose_estimation_torch.utils import tracing
 
 PLANES = 128          # the kernel's bottleneck width
 MAX_SMEM = 232448     # bytes of shared memory one block may use on Hopper
@@ -254,7 +255,7 @@ def _image_launch(x: torch.Tensor, p: BottleneckParams) -> torch.Tensor:
     err = _build.library().hpe_bottleneck_image_fwd(
         *_kernel_args(x, p, out), B, H, W, C, PLANES, tr, _build.stream_for(x))
     _build.check(err, 'fused_bottleneck_image')
-    fused_bottleneck_image.launches += 1
+    tracing.count('launches.fused_bottleneck_image')
     return out
 
 
@@ -268,7 +269,7 @@ def _chunked_launch(x: torch.Tensor, p: BottleneckParams) -> torch.Tensor:
     err = _build.library().hpe_bottleneck_fwd(
         *_kernel_args(x, p, out), B, H, W, C, PLANES, tr, _build.stream_for(x))
     _build.check(err, 'fused_bottleneck_chunked')
-    fused_bottleneck_chunked.launches += 1
+    tracing.count('launches.fused_bottleneck_chunked')
     return out
 
 
@@ -296,8 +297,8 @@ _define_op('fused_bottleneck_chunked', _chunked_launch)
 
 def fused_bottleneck_image(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
     """Forward, impl 'image' (the op `hpe::fused_bottleneck_image`): the
-    cluster kernel for a CUDA tensor (counted in
-    `fused_bottleneck_image.launches`), `bottleneck_reference` for a CPU
+    cluster kernel for a CUDA tensor (counted in tracing's
+    `launches.fused_bottleneck_image`), `bottleneck_reference` for a CPU
     one. Raises ValueError where no cluster of at most MAX_CLUSTER blocks
     holds the image, or none can be resident on the card."""
     return torch.ops.hpe.fused_bottleneck_image(x, *params)
@@ -305,8 +306,8 @@ def fused_bottleneck_image(x: torch.Tensor, params: BottleneckParams) -> torch.T
 
 def fused_bottleneck_chunked(x: torch.Tensor, params: BottleneckParams) -> torch.Tensor:
     """Forward, impl 'chunked' (the op `hpe::fused_bottleneck_chunked`): the
-    row-tile kernel for a CUDA tensor (counted in
-    `fused_bottleneck_chunked.launches`), `bottleneck_reference` for a CPU
+    row-tile kernel for a CUDA tensor (counted in tracing's
+    `launches.fused_bottleneck_chunked`), `bottleneck_reference` for a CPU
     one."""
     return torch.ops.hpe.fused_bottleneck_chunked(x, *params)
 
@@ -419,6 +420,4 @@ def fused_bottleneck(x: torch.Tensor, params: BottleneckParams,
     return _FusedBottleneck.apply(x, resolve_impl(impl), *params)
 
 
-fused_bottleneck_image.launches = 0
-fused_bottleneck_chunked.launches = 0
 fused_bottleneck.backward_calls = 0

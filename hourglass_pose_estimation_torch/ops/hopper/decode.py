@@ -17,6 +17,7 @@ import math
 import torch
 
 from hourglass_pose_estimation_torch.ops.hopper import _build
+from hourglass_pose_estimation_torch.utils import tracing
 
 MAX_CLUSTER = 8          # blocks an image: the portable thread-block cluster
 TARGET_BLOCKS = 256      # blocks a launch aims at: about two per SM (132 on the H100)
@@ -109,7 +110,7 @@ def _(heatmaps):
         heatmaps.data_ptr(), coords.data_ptr(), maxvals.data_ptr(),
         B, H, W, J, K, rows, T, L, _build.stream_for(heatmaps))
     _build.check(err, 'decode_peaks')
-    decode_peaks.launches += 1
+    tracing.count('launches.decode_peaks')
     return coords, maxvals
 
 
@@ -128,8 +129,5 @@ def decode_peaks(heatmaps: torch.Tensor):
     `hpe::decode_peaks`).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (counted in `decode_peaks.launches`) or raises."""
+    kernel (counted in tracing's `launches.decode_peaks`) or raises."""
     return torch.ops.hpe.decode_peaks(heatmaps)
-
-
-decode_peaks.launches = 0

@@ -20,6 +20,7 @@ import torch
 
 from hourglass_pose_estimation_torch.ops.hopper import _build
 from hourglass_pose_estimation_torch.ops.hopper.upsample import _check_vectors
+from hourglass_pose_estimation_torch.utils import tracing
 
 
 def _windows(x: torch.Tensor) -> torch.Tensor:
@@ -102,7 +103,7 @@ def _(x):
         x.data_ptr(), out.data_ptr(), B, H, W, C, esize, _build.num_sms(x),
         _build.stream_for(x))
     _build.check(err, 'maxpool2x2')
-    maxpool2x2_fwd.launches += 1
+    tracing.count('launches.maxpool2x2_fwd')
     return out
 
 
@@ -122,7 +123,7 @@ def _bwd_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 @_bwd_op.register_kernel('cuda')
 def _(x, g):
     dx = _bwd(x, g, first_max=False)
-    maxpool2x2_bwd.launches += 1
+    tracing.count('launches.maxpool2x2_bwd')
     return dx
 
 
@@ -134,7 +135,7 @@ def _bwd_first_op(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 @_bwd_first_op.register_kernel('cuda')
 def _(x, g):
     dx = _bwd(x, g, first_max=True)
-    maxpool2x2_bwd_first.launches += 1
+    tracing.count('launches.maxpool2x2_bwd_first')
     return dx
 
 
@@ -155,7 +156,7 @@ def maxpool2x2_fwd(x: torch.Tensor) -> torch.Tensor:
     op `hpe::maxpool2x2_fwd`).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (counted in `maxpool2x2_fwd.launches`) or raises."""
+    kernel (counted in tracing's `launches.maxpool2x2_fwd`) or raises."""
     return torch.ops.hpe.maxpool2x2_fwd(x)
 
 
@@ -164,7 +165,7 @@ def maxpool2x2_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     [B, H, W, C] (the op `hpe::maxpool2x2_bwd`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in `maxpool2x2_bwd.launches`) or raise."""
+    (counted in tracing's `launches.maxpool2x2_bwd`) or raise."""
     return torch.ops.hpe.maxpool2x2_bwd(x, g)
 
 
@@ -173,7 +174,7 @@ def maxpool2x2_bwd_first(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     `maxpool2x2_bwd`'s arguments (the op `hpe::maxpool2x2_bwd_first`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in `maxpool2x2_bwd_first.launches`) or raise."""
+    (counted in tracing's `launches.maxpool2x2_bwd_first`) or raise."""
     return torch.ops.hpe.maxpool2x2_bwd_first(x, g)
 
 
@@ -201,8 +202,3 @@ def maxpool2x2(x: torch.Tensor, ties: str = 'first') -> torch.Tensor:
     if ties not in _BACKWARDS:
         raise ValueError(f"maxpool2x2: ties must be 'split' or 'first', got {ties!r}")
     return _MaxPool.apply(x, ties)
-
-
-maxpool2x2_fwd.launches = 0
-maxpool2x2_bwd.launches = 0
-maxpool2x2_bwd_first.launches = 0

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from hourglass_pose_estimation_torch.ops.hopper import _build
+from hourglass_pose_estimation_torch.utils import tracing
 
 
 def render_gaussian_reference(mu: torch.Tensor, weight: torch.Tensor,
@@ -66,7 +67,7 @@ def _(mu, weight, width, height, sigma):
         int(3 * sigma), float(np.float32(2.0 * sigma ** 2)),
         _build.num_sms(mu), _build.stream_for(mu))
     _build.check(err, 'render_gaussian')
-    render_gaussian.launches += 1
+    tracing.count('launches.render_gaussian')
     return out
 
 
@@ -84,9 +85,6 @@ def render_gaussian(mu: torch.Tensor, weight: torch.Tensor, heatmap_size,
     (the op `hpe::render_gaussian`).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in `render_gaussian.launches`) or raise."""
+    (counted in tracing's `launches.render_gaussian`) or raise."""
     return torch.ops.hpe.render_gaussian(mu, weight, int(heatmap_size[0]),
                                          int(heatmap_size[1]), float(sigma))
-
-
-render_gaussian.launches = 0

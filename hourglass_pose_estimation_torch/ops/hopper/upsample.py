@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from hourglass_pose_estimation_torch.ops.hopper import _build
+from hourglass_pose_estimation_torch.utils import tracing
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +91,7 @@ def _(low, skip):
         low.data_ptr(), skip.data_ptr(), out.data_ptr(), B, H, W, C, esize,
         _build.num_sms(low), _build.stream_for(low))
     _build.check(err, 'upsample2x_add')
-    upsample2x_add.launches += 1
+    tracing.count('launches.upsample2x_add')
     return out
 
 
@@ -115,7 +116,7 @@ def _(g):
         g.data_ptr(), dlow.data_ptr(), B, H2 // 2, W2 // 2, C, esize,
         _build.num_sms(g), _build.stream_for(g))
     _build.check(err, 'upsample2x_add_bwd')
-    upsample2x_add_bwd.launches += 1
+    tracing.count('launches.upsample2x_add_bwd')
     return dlow
 
 
@@ -132,7 +133,7 @@ def upsample2x_add_bwd(g: torch.Tensor) -> torch.Tensor:
     `hpe::upsample2x_add_bwd`).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (counted in `upsample2x_add_bwd.launches`) or raises."""
+    kernel (counted in tracing's `launches.upsample2x_add_bwd`) or raises."""
     return torch.ops.hpe.upsample2x_add_bwd(g)
 
 
@@ -152,11 +153,7 @@ def upsample2x_add(low: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     [B, H, W, C], skip [B, 2H, 2W, C], both NHWC, one dtype.
 
     CPU tensors take the plain versions; CUDA tensors launch the forward
-    kernel (the op `hpe::upsample2x_add`, counted in
-    `upsample2x_add.launches`) and, in the backward, `upsample2x_add_bwd`,
+    kernel (the op `hpe::upsample2x_add`, counted in tracing's
+    `launches.upsample2x_add`) and, in the backward, `upsample2x_add_bwd`,
     or raise."""
     return _UpsampleAdd.apply(low, skip)
-
-
-upsample2x_add.launches = 0
-upsample2x_add_bwd.launches = 0

@@ -37,8 +37,10 @@ gradient.
 
 The collectives take the tensors where they lie, on every backend, as
 the rest of `parallel/` does (gloo copies a CUDA tensor through host
-memory itself). `TRAFFIC` counts the model-axis collectives: calls, the
-bytes of their results on this rank, and the host seconds spent in them.
+memory itself). The model-axis collectives are counted in `utils.tracing`:
+`tp.collective_calls`, `tp.collective_bytes` (of their results on this
+rank), and each is a `tp.collective` span (its host time, recorded while
+recording is on).
 
 `ShardedTrainState` is a TrainState over a sharded model that keeps a
 standard-layout replica: validation runs on the replica with the gathered
@@ -51,7 +53,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import time
 from typing import Any, Dict, List
 
 import torch
@@ -67,50 +68,35 @@ from hourglass_pose_estimation_torch.parallel.pipeline import _cpu
 from hourglass_pose_estimation_torch.parallel.shard_map_step import all_reduce_
 from hourglass_pose_estimation_torch.runner.checkpoint import load_optimizer
 from hourglass_pose_estimation_torch.runner.train_state import TrainState
+from hourglass_pose_estimation_torch.utils import tracing
 
 
-@dataclasses.dataclass
-class Traffic:
-    """Model-axis collectives of this process: calls, bytes of their
-    results on this rank, host seconds."""
-    calls: int = 0
-    bytes: int = 0
-    seconds: float = 0.0
-
-    def reset(self) -> None:
-        self.calls, self.bytes, self.seconds = 0, 0, 0.0
-
-
-TRAFFIC = Traffic()
-
-
-def _count(nbytes: int, t0: float) -> None:
-    TRAFFIC.calls += 1
-    TRAFFIC.bytes += nbytes
-    TRAFFIC.seconds += time.perf_counter() - t0
+def _count(nbytes: int) -> None:
+    tracing.count('tp.collective_calls')
+    tracing.count('tp.collective_bytes', nbytes)
 
 
 def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Every model rank's `t` concatenated along `dim`, in rank order (no
     autograd)."""
-    t0 = time.perf_counter()
-    src = t.detach().contiguous()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts, dim)
-    _count(out.numel() * out.element_size(), t0)
+    with tracing.span('tp.collective'):
+        src = t.detach().contiguous()
+        parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, src, group=group)
+        out = torch.cat(parts, dim)
+    _count(out.numel() * out.element_size())
     return out
 
 
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of every model rank's `t` (summed in at least f32), in `t`'s
     dtype (no autograd; `t` is left as it is)."""
-    t0 = time.perf_counter()
-    buf = t.to(torch.promote_types(t.dtype, torch.float32),
-               memory_format=torch.contiguous_format, copy=True)
-    dist.all_reduce(buf, group=group)
-    out = buf.to(t.dtype)
-    _count(out.numel() * out.element_size(), t0)
+    with tracing.span('tp.collective'):
+        buf = t.to(torch.promote_types(t.dtype, torch.float32),
+                   memory_format=torch.contiguous_format, copy=True)
+        dist.all_reduce(buf, group=group)
+        out = buf.to(t.dtype)
+    _count(out.numel() * out.element_size())
     return out
 
 
@@ -304,10 +290,10 @@ class ShardedTrainState(TrainState):
         grads = {n: params[n].grad for n in self.replicated if params[n].grad is not None}
         if not grads:
             return
-        t0 = time.perf_counter()
-        own = {n: g.clone() for n, g in grads.items()}
-        all_reduce_(list(grads.values()), self.mesh.model_group, self.mesh.model)
-        _count(sum(g.numel() * g.element_size() for g in grads.values()), t0)
+        with tracing.span('tp.collective'):
+            own = {n: g.clone() for n, g in grads.items()}
+            all_reduce_(list(grads.values()), self.mesh.model_group, self.mesh.model)
+        _count(sum(g.numel() * g.element_size() for g in grads.values()))
         none = next(iter(grads.values())).new_zeros(())
         spread = torch.stack([
             (own[n] - grads[n]).abs().amax() / grads[n].abs().amax().clamp_min(1e-30)

@@ -46,6 +46,15 @@ batch N: on the card on a side CUDA stream, ordered before the next step's
 use by an event, in sequence on the CPU; the augmentation of the batch a
 step consumes at `state.step` = s is drawn from step s's generator, as the
 sequential step draws it.
+
+Spans (`utils.tracing`, recorded under a profiler or `tracing.enable()`):
+a train step is `train.step` (step `state.step`) around, in order,
+`train.stage` (to the device, the draws, the augmentation and render),
+`train.forward` (the model and the loss), `train.backward` (zero_grad and
+the backward), `train.optimizer` (the lr and RMSprop's step) and
+`train.metrics`; the overlapped step's staging is a `train.stage` of its
+own, of the step that will consume it, timed on the side stream. No span
+goes inside the models.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from hourglass_pose_estimation_torch._device import resolve_device
 from hourglass_pose_estimation_torch.data.pipeline import (
     augment_batch, sample_augmentations, to_device)
 from hourglass_pose_estimation_torch.loss import heatmap_mse_loss
+from hourglass_pose_estimation_torch.utils import tracing
 from hourglass_pose_estimation_torch.utils.evaluation import (
     combine_pck_counts, pck_counts)
 
@@ -191,22 +201,28 @@ def make_train_step(spec, *, subset=None, pck_thr=0.5, device_pipeline=True,
 
     def train_step(state: TrainState, batch, rng):
         dev = _device_of(state)
-        data = to_device(batch, dev)
-        if device_pipeline:
-            data = augment_batch(data, _global_draws(spec, rng, state.step, data['scale'], mesh),
-                                 spec, True)
-        target, tw = _select_subset(data['target'], data['target_weight'], subset_t)
-        model = _replica(state, mesh) if distributed else state.model
-        outs = model(data['image'], train=not freeze_bn)
-        loss = heatmap_mse_loss(outs, target, tw)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for group in state.optimizer.param_groups:
-            group['lr'] = state.tx.lr(state.step)
-        state.optimizer.step()
-        with torch.no_grad():
-            metrics = step_metrics(loss, outs[-1], target, pck_thr, mesh)
-        state.step += 1
+        with tracing.span('train.step', step=state.step, device=dev):
+            with tracing.span('train.stage'):
+                data = to_device(batch, dev)
+                if device_pipeline:
+                    data = augment_batch(
+                        data, _global_draws(spec, rng, state.step, data['scale'], mesh), spec,
+                        True)
+                target, tw = _select_subset(data['target'], data['target_weight'], subset_t)
+            with tracing.span('train.forward'):
+                model = _replica(state, mesh) if distributed else state.model
+                outs = model(data['image'], train=not freeze_bn)
+                loss = heatmap_mse_loss(outs, target, tw)
+            with tracing.span('train.backward'):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with tracing.span('train.optimizer'):
+                for group in state.optimizer.param_groups:
+                    group['lr'] = state.tx.lr(state.step)
+                state.optimizer.step()
+            with tracing.span('train.metrics'), torch.no_grad():
+                metrics = step_metrics(loss, outs[-1], target, pck_thr, mesh)
+            state.step += 1
         return state, metrics
 
     return train_step
@@ -217,12 +233,15 @@ STAGED_KEYS = ('image', 'target', 'target_weight')
 
 
 def _stage(spec, batch, rng: int, step: int, train: bool, device) -> dict:
-    data = to_device(batch, device)
-    draws = (_global_draws(spec, rng, step, data['scale'], None) if train else
-             sample_augmentations(None, data['scale'], scale_factor=spec.scale_factor,
-                                  rot_factor=spec.rot_factor, train=False))
-    data = augment_batch(data, draws, spec, train)
-    return {k: data[k] for k in STAGED_KEYS}
+    # the span's events go on the stream the staging runs on (the
+    # overlapped step's side stream)
+    with tracing.span('train.stage', step=step, device=device):
+        data = to_device(batch, device)
+        draws = (_global_draws(spec, rng, step, data['scale'], None) if train else
+                 sample_augmentations(None, data['scale'], scale_factor=spec.scale_factor,
+                                      rot_factor=spec.rot_factor, train=False))
+        data = augment_batch(data, draws, spec, train)
+        return {k: data[k] for k in STAGED_KEYS}
 
 
 def make_stage_fn(spec, *, train=True, device='cuda'):

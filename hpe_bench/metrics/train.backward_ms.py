@@ -1,0 +1,11 @@
+"""train.backward_ms: the program's `train.backward` span's mean device ms a
+traced step (zero_grad and the models' backward), from the CUDA events the
+span records on the stream (`hpe_bench/spans.py`). Nothing without the span."""
+
+from hpe_bench import spans
+
+
+def read(ctx, trace):
+    if ctx.get('kind') != 'train':
+        return None
+    return spans.phase_ms(trace, 'train.backward')

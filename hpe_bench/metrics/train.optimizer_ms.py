@@ -1,0 +1,11 @@
+"""train.optimizer_ms: the program's `train.optimizer` span's mean device ms a
+traced step (the learning rate and RMSprop's step), from the CUDA events the
+span records on the stream (`hpe_bench/spans.py`). Nothing without the span."""
+
+from hpe_bench import spans
+
+
+def read(ctx, trace):
+    if ctx.get('kind') != 'train':
+        return None
+    return spans.phase_ms(trace, 'train.optimizer')

@@ -26,7 +26,7 @@ from hourglass_pose_estimation_torch.ops.heatmap import render_preamble
 from hourglass_pose_estimation_torch.ops.hopper import (
     KERNEL_WRAPPERS, bottleneck_backward_reference, bottleneck_reference,
     decode_peaks, decode_peaks_reference, fused_bottleneck,
-    fused_bottleneck_chunked, fused_bottleneck_image, maxpool2x2,
+    fused_bottleneck_chunked, fused_bottleneck_image, launch_counts, maxpool2x2,
     maxpool2x2_bwd, maxpool2x2_bwd_first, maxpool2x2_bwd_first_reference,
     maxpool2x2_bwd_reference, maxpool2x2_fwd,
     maxpool2x2_reference, render_gaussian, render_gaussian_reference,
@@ -34,6 +34,7 @@ from hourglass_pose_estimation_torch.ops.hopper import (
     upsample2x_add_reference)
 from hourglass_pose_estimation_torch.runner import (
     init_state, make_optimizer, make_train_step)
+from hourglass_pose_estimation_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +46,11 @@ def dev():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device('cuda')
+
+
+def launched(wrapper) -> int:
+    """The launches of one kernel wrapper since the last tracing.reset()."""
+    return launch_counts()[wrapper.__name__]
 
 
 def _rel(a, b):
@@ -67,9 +73,9 @@ def test_bottleneck_kernel_matches_plain(dev, shape):
     outs = {}
     for impl, wrapper in (('image', fused_bottleneck_image),
                           ('chunked', fused_bottleneck_chunked)):
-        before = wrapper.launches
+        before = launched(wrapper)
         outs[impl] = got = fused_bottleneck(x, prm, impl=impl)
-        assert wrapper.launches == before + 1
+        assert launched(wrapper) == before + 1
         # same rounding points; f32 summation order differs. The residual
         # branch (out - x) is what the kernel computes; x dominates the output
         assert _rel(got.float() - x.float(), ref.float() - x.float()) < 1e-2
@@ -102,10 +108,10 @@ def test_cluster_bottleneck_refuses_more_than_eight_blocks(dev):
     torch.manual_seed(2)
     prm = Bottleneck(256, 128).to(dev).fused_params()
     x = torch.randn(1, 128, 128, 256, device=dev).to(torch.bfloat16)
-    before = fused_bottleneck_image.launches
+    before = launched(fused_bottleneck_image)
     with pytest.raises(ValueError, match="impl='chunked'"):
         fused_bottleneck(x, prm, impl='image')
-    assert fused_bottleneck_image.launches == before
+    assert launched(fused_bottleneck_image) == before
     got = fused_bottleneck(x, prm, impl='chunked')
     ref = bottleneck_reference(x, prm)
     assert _rel(got.float() - x.float(), ref.float() - x.float()) < 1e-2
@@ -134,12 +140,11 @@ def test_f32_config_eval_step_runs_standard_blocks(dev, tmp_path):
                       overrides=[f'COMMON.checkpoint_dir={tmp_path}'])
     assert cfg.model.fuse_block and cfg.train.precision == 'f32'
     t = Trainer(cfg, verbose=False, device=dev)
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    tracing.reset()
     loss, acc = t._evaluate()
     assert np.isfinite([loss, acc]).all()
-    assert fused_bottleneck_chunked.launches == fused_bottleneck_image.launches == 0
-    assert upsample2x_add.launches > 0
+    assert launched(fused_bottleneck_chunked) == launched(fused_bottleneck_image) == 0
+    assert launched(upsample2x_add) > 0
 
 
 @pytest.mark.parametrize('h,c,dtype', [(12, 32, torch.float32),
@@ -179,9 +184,9 @@ def test_decode_kernel_is_exact(dev, b, h, w, j):
         hm[-1, rows - 1, w - 2, 3] = hm[-1, rows, 1, 3] = 9.0
     hm[-1, h // 2, w // 2, 4] = float('nan')
     hm = hm.to(dev)
-    before = decode_peaks.launches
+    before = launched(decode_peaks)
     got, ref = decode_peaks(hm), decode_peaks_reference(hm)
-    assert decode_peaks.launches == before + 1
+    assert launched(decode_peaks) == before + 1
     assert _same(got[0], ref[0]) and _same(got[1], ref[1])
     assert got[0][0, 0].tolist() == [3.0 + float(torch.sign(hm[0, 3, 4, 0] - hm[0, 3, 2, 0])) * 0.25,
                                      3.0 + float(torch.sign(hm[0, 4, 3, 0] - hm[0, 2, 3, 0])) * 0.25]
@@ -244,9 +249,9 @@ def test_inference_fn_kernel_path_matches_plain_path(dev):
                                          (4, 16, 256, torch.bfloat16)])
 def test_upsample_backward_kernel_is_exact(dev, b, h, c, dtype):
     g = torch.randn(b, 2 * h, 2 * h + 2, c, device=dev).to(dtype)
-    before = upsample2x_add_bwd.launches
+    before = launched(upsample2x_add_bwd)
     got = upsample2x_add_bwd(g)
-    assert upsample2x_add_bwd.launches == before + 1
+    assert launched(upsample2x_add_bwd) == before + 1
     assert torch.equal(got, upsample2x_add_bwd_reference(g))
 
 
@@ -282,9 +287,9 @@ def test_pool_first_max_kernel_matches_max_pool2d_autograd(dev, b, h, c, dtype):
     convention), through the wrapper and through the autograd Function."""
     x = _tied(b, h, c, dtype, dev)
     g = torch.randn(b, h // 2, h // 2, c, device=dev).to(dtype)
-    before = maxpool2x2_bwd_first.launches
+    before = launched(maxpool2x2_bwd_first)
     dx = maxpool2x2_bwd_first(x, g)
-    assert maxpool2x2_bwd_first.launches == before + 1
+    assert launched(maxpool2x2_bwd_first) == before + 1
     assert torch.equal(dx, maxpool2x2_bwd_first_reference(x, g))
     xn = x.permute(0, 3, 1, 2).detach().requires_grad_()
     torch.nn.functional.max_pool2d(xn, 2, 2).backward(g.permute(0, 3, 1, 2))
@@ -312,9 +317,9 @@ def test_render_kernel_within_one_ulp(dev, b, hm, img, j, sigma):
     joints[0, :3] = torch.tensor([[0.0, 0.0], [W - 1.0, H - 1.0], [-20.0, H + 6.0]])
     vis = (torch.rand(b, j, generator=gen) > 0.2).float()
     mu, w = render_preamble(joints.to(dev), vis.to(dev), hm, img, sigma)
-    before = render_gaussian.launches
+    before = launched(render_gaussian)
     got = render_gaussian(mu, w, hm, sigma)
-    assert render_gaussian.launches == before + 1
+    assert launched(render_gaussian) == before + 1
     ref = render_gaussian_reference(mu, w, hm, sigma)
     assert got.shape == (b, hm[1], hm[0], j)
     assert torch.equal(got > 0, ref > 0) and bool((got > 0).any())
@@ -361,10 +366,9 @@ def test_small_train_step_launches_the_training_kernels(dev):
                       fuse_block=True, fuse_upsample=True)
     state = init_state(model, make_optimizer(2.5e-4, [], 0.1, 10))
     step = make_train_step(spec, device_pipeline=True)
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    tracing.reset()
     losses = [float(step(state, raw, 0)[1]['loss']) for _ in range(3)]
-    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    counts = launch_counts()
     # per step: 4 merges, 1 stem + 4 encoder pools (their backward gives a
     # tie's gradient to the first maximum), 1 render
     assert counts == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
@@ -437,8 +441,7 @@ def test_overlapped_step_stages_on_a_side_stream(dev):
     seq, stage = make_train_step(spec), make_stage_fn(spec, device=dev)
     seq_losses = [float(seq(seq_state, raw, 5)[1]['loss']) for raw in raws]
     ostep, drain = make_overlapped_train_step(spec), make_train_step(spec, device_pipeline=False)
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    tracing.reset()
     staged, losses = stage(raws[0], 5, 0), []
     for i, raw in enumerate(raws[1:], 1):
         state, staged, m = ostep(state, staged, raw, 5)
@@ -450,7 +453,7 @@ def test_overlapped_step_stages_on_a_side_stream(dev):
     assert state.step == 3
     assert losses == seq_losses, (losses, seq_losses)
     # renders: the prime, 2 overlapped stagings and the 2 re-stagings above
-    assert render_gaussian.launches == 5
+    assert launched(render_gaussian) == 5
 
 
 @pytest.mark.parametrize('backend', ['gloo', 'nccl'])
@@ -510,12 +513,11 @@ def test_trainer_stages_batches_on_a_side_stream(dev, tmp_path):
     batch = t._take(staged)
     for k, v in raw.items():
         assert np.array_equal(batch[k].cpu().numpy(), v), k
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    tracing.reset()
     t.train()
     h = t.history[0]
     assert np.isfinite([h['train_loss'], h['val_loss']]).all()
-    assert fused_bottleneck_chunked.launches + fused_bottleneck_image.launches > 0
+    assert launched(fused_bottleneck_chunked) + launched(fused_bottleneck_image) > 0
     assert (tmp_path / 'ckpts' / 'checkpoint_1').is_file()
 
 
@@ -540,10 +542,9 @@ def test_predict_keypoints_on_the_card_matches_the_plain_path(dev):
         if states:
             model.load_state_dict(states[True].model.state_dict())
         states[on] = TrainState(model=model, tx=None, optimizer=None)
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    tracing.reset()
     got = ev.predict_keypoints(states[True])
-    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    counts = launch_counts()
     assert counts == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
                           upsample2x_add=8 * 3, decode_peaks=3, upsample2x_add_bwd=0,
                           maxpool2x2_fwd=10 * 3, maxpool2x2_bwd=0, maxpool2x2_bwd_first=0,
@@ -629,8 +630,7 @@ def test_mspn_on_the_card_matches_the_cpu(dev):
         m.momentum = 0.9
     card = get_model('mspn', device=dev, dtype=torch.float32, **kw)
     card.load_state_dict(cpu.state_dict())
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    tracing.reset()
     for train in (True, False):
         with torch.no_grad():
             ref, got = cpu(x, train=train), card(x.to(dev), train=train).cpu()
@@ -639,7 +639,7 @@ def test_mspn_on_the_card_matches_the_cpu(dev):
             assert _rel(got[h], ref[h]) <= 1e-4, (train, h, _rel(got[h], ref[h]))
     for a, b in zip(cpu.state_dict().values(), card.state_dict().values()):
         assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(a.abs().max()) + 1e-7
-    assert all(w.launches == 0 for w in KERNEL_WRAPPERS)
+    assert not any(launch_counts().values())
     bf16 = {}
     for d in ('cpu', dev):
         m = get_model('mspn', device=d, **kw)
@@ -699,11 +699,11 @@ def test_prepare_host_batch_on_the_card_matches_the_cpu(dev):
              'joints': torch.rand(8, 16, 2, generator=gen) * 300 - 20,
              'vis': (torch.rand(8, 16, generator=gen) > 0.2).float()}
     spec = make_spec(Synthetic(False, num_samples=1, inp_res=256, out_res=64))
-    before = render_gaussian.launches
+    before = launched(render_gaussian)
     got = prepare_host_batch({k: v.to(dev) for k, v in batch.items()}, spec)
-    assert render_gaussian.launches == before + 1
+    assert launched(render_gaussian) == before + 1
     ref = prepare_host_batch(batch, spec)
-    assert render_gaussian.launches == before + 1
+    assert launched(render_gaussian) == before + 1
     assert float((got['image'].cpu() - ref['image']).abs().max()) <= 1e-6
     assert torch.equal(got['target_weight'].cpu(), ref['target_weight'])
     assert float((got['target'].cpu() - ref['target']).abs().max()) <= 1e-6
@@ -756,11 +756,10 @@ def test_exported_flagship_program_keeps_the_kernels(dev, tmp_path):
     fn, program = make_inference_fn(model, None, **kw), load_program(path)
     ref = fn(frames)
     program(frames)
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    tracing.reset()
     got = program(frames)
     torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    launches = launch_counts()
     want = {f'fused_bottleneck_{bk.DEFAULT_IMPL}': 65, 'upsample2x_add': 32,
             'maxpool2x2_fwd': 33, 'decode_peaks': 1}
     assert launches == {k: want.get(k, 0) for k in launches}

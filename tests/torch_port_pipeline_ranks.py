@@ -35,12 +35,13 @@ from hourglass_pose_estimation_torch import train_and_evaluate  # noqa: E402
 from hourglass_pose_estimation_torch.parallel import (  # noqa: E402
     make_mesh, maybe_initialize_distributed)
 from hourglass_pose_estimation_torch.data import Synthetic, make_spec  # noqa: E402
-from hourglass_pose_estimation_torch.ops.hopper import KERNEL_WRAPPERS  # noqa: E402
+from hourglass_pose_estimation_torch.ops.hopper import launch_counts  # noqa: E402
 from hourglass_pose_estimation_torch.parallel import pipeline  # noqa: E402
 from hourglass_pose_estimation_torch.parallel.pipeline import (  # noqa: E402
     PipelineState, build_stage, make_pipeline_train_step)
 from hourglass_pose_estimation_torch.runner import checkpoint  # noqa: E402
 from hourglass_pose_estimation_torch.runner.train_state import make_optimizer  # noqa: E402
+from hourglass_pose_estimation_torch.utils import tracing  # noqa: E402
 from hourglass_pose_estimation_torch.weights import load_jax_pipeline_variables  # noqa: E402
 
 WORLD, DP, PP = 4, 2, 2
@@ -206,12 +207,10 @@ def card_main(backend: str, work: Path) -> int:
                    sigma=1, scale_factor=0.25, rot_factor=30)
     step = pipeline.make_pipeline_train_step_raw(make_spec(ds), mesh, num_microbatches=CARD_M)
     raw = ds.canvas_batch(range(CARD_BATCH), canvas=CARD_RES)
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
+    tracing.reset()
     state, m = step(state, raw, 0)
     out = dict(stage=mesh.stage, device=str(mesh.device), handoff=handoff,
-               loss=float(m['loss']),
-               launches={w.__name__: w.launches for w in KERNEL_WRAPPERS})
+               loss=float(m['loss']), launches=launch_counts())
     (work / f'card{rank}.json').write_text(json.dumps(out))
     torch.distributed.destroy_process_group()
     return 0

@@ -39,12 +39,13 @@ from hourglass_pose_estimation_torch.data import Synthetic, make_spec  # noqa: E
 from hourglass_pose_estimation_torch.models import HourglassNet, mspn  # noqa: E402
 from hourglass_pose_estimation_torch.models.modules import Bottleneck, Conv  # noqa: E402
 from hourglass_pose_estimation_torch.models.norm import BatchNorm  # noqa: E402
-from hourglass_pose_estimation_torch.ops.hopper import KERNEL_WRAPPERS  # noqa: E402
+from hourglass_pose_estimation_torch.ops.hopper import launch_counts  # noqa: E402
 from hourglass_pose_estimation_torch.parallel import (  # noqa: E402
     ShardedTrainState, gather_params, make_mesh, maybe_initialize_distributed, shard_model,
     sync_batch_norm)
 from hourglass_pose_estimation_torch.parallel import tensor_parallel as tpl  # noqa: E402
 from hourglass_pose_estimation_torch.runner import checkpoint, train_state  # noqa: E402
+from hourglass_pose_estimation_torch.utils import tracing  # noqa: E402
 from hourglass_pose_estimation_torch.weights import load_jax_variables  # noqa: E402
 
 WORLD, DP, TP = 4, 2, 2
@@ -326,13 +327,11 @@ def card_main(backend: str, work: Path) -> int:
                    sigma=1, scale_factor=0.25, rot_factor=30)
     step = train_state.make_train_step(make_spec(ds), mesh=mesh)
     raw = ds.canvas_batch(range(CARD_BATCH), canvas=CARD_RES)
-    for w in KERNEL_WRAPPERS:
-        w.launches = 0
-    tpl.TRAFFIC.reset()
+    tracing.reset()
     state, m = step(state, raw, 0)
     out = dict(model_rank=mesh.model_rank, device=str(mesh.device), loss=float(m['loss']),
-               collectives=tpl.TRAFFIC.calls, sharded_leaves=sharded_leaves(state),
-               launches={w.__name__: w.launches for w in KERNEL_WRAPPERS})
+               collectives=tracing.counters()['tp.collective_calls'],
+               sharded_leaves=sharded_leaves(state), launches=launch_counts())
     (work / f'card{rank}.json').write_text(json.dumps(out))
     torch.distributed.destroy_process_group()
     return 0
