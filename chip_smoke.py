@@ -33,7 +33,12 @@ failure):
      split and first maximum, at the stem and hourglass shapes with
      planted ties, the first-maximum one also against PyTorch's pool
      backward, the Gaussian target render with joints on the edges, off
-     the map and at weight 0, equal at sigma 1);
+     the map and at weight 0, equal at sigma 1), and the fused train-mode
+     BatchNorm's four kernels (statistics, apply with the ReLU and the
+     bf16 cast, backward reduction, dx) at the flagship's and MSPN's
+     largest BatchNorm, [64|128, 64^2, 256] bf16: the statistics within
+     TOL_BN_STATS, the apply bit for bit given them, the backward within
+     its tolerances, each against its byte bound and the plain chain;
   4. the serving path: the flagship 8-stack hourglass of
      configs/train_mpii_8stack.yaml with seeded weights, built by
      serve_http.build_inference into a frames -> keypoints function
@@ -54,8 +59,8 @@ failure):
      and every gradient; a second kernels-off step reads the gradients'
      run-to-run noise), 3 warm-up and 10 timed steps (loss of every
      step, step ms p50, img/s, peak memory), 32 + 32 upsample, 33 + 33
-     pool (the backward's first-maximum mode) and 1 render launch per
-     step;
+     pool (the backward's first-maximum mode), 1 render and 354 of each
+     fused BatchNorm kernel per step;
   7. the eval step on the same batch under each bottleneck schedule (65
      launches of that schedule's kernel, 32 upsample, 33 pool, 1 render;
      the two schedules' losses and heatmaps equal), its loss against the
@@ -87,8 +92,8 @@ failure):
      MODEL.arch=mspn MODEL.num_stacks=2: 56,848,576 parameters, 256^2 ->
      64^2, bf16 compute): the train step at batch 64 (3 warm-up and 10
      timed steps, the loss of every step finite and the last below the
-     first, step p50, img/s, peak memory, 1 render launch a step and no
-     other), the eval step (1 render);
+     first, step p50, img/s, peak memory, 1 render and 144 of each fused
+     BatchNorm kernel a step and no other), the eval step (1 render);
  13. MSPN serving: serve_http.build_inference (fold_bn, bf16 weights, batch
      64, MODEL.fuse_block at the arch's default, off) behind the batcher
      and the HTTP server answering 128 frames, 1 decode a batch; folded vs
@@ -281,11 +286,40 @@ TOL_F32_REFERENCE = 3e-2
 # f32 arithmetic in the same order, rounded once), except the render: the
 # card's expf against PyTorch's exp, within 1 ulp of f32
 RENDER_MAX_ULP = 1
+# the fused BatchNorm's statistics against its plain version, f32 sums in
+# another order: the mean within this share of |mean| + std, the variance
+# of E[x^2]
+TOL_BN_STATS = 1e-5
+# PyTorch's own BatchNorm kernels against the fused ones (relative L2 of the
+# mean, the bf16 output, dweight, dbias and dx): the same math up to the
+# variance's form, the order of the sums and bf16 rounding of the ReLU's
+# input
+LIBRARY_BN_TOL = 1e-2
+# MSPN's train batch in the benchmark, whose largest BatchNorm the kernel
+# table times
+MSPN_TRAIN_BATCH_BN = 128
+# the fused train-mode BatchNorm's kernels (statistics and apply forward,
+# reduction and dx back), each launched once a BatchNorm and step in
+# training, never with BN frozen or in eval; the BatchNorms of the flagship
+# (the stem's 10 and 43 a stack) and of the 2-stage MSPN
+BN_KERNELS = ('batch_norm_train_stats', 'batch_norm_train_fwd', 'batch_norm_train_bwd_reduce',
+              'batch_norm_train_bwd')
+FLAGSHIP_BN, STEM_BN, STACK_BN, MSPN_BN = 354, 10, 43, 144
+
+
+def bn_launches(n: int) -> dict:
+    return {k: n for k in BN_KERNELS}
+
+
+def without_bn(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if k not in BN_KERNELS}
+
+
 # the flagship train step, and its launches on any path (the device
-# pipeline's render, 32 + 32 upsample and 33 + 33 pool)
+# pipeline's render, 32 + 32 upsample and 33 + 33 pool, every BatchNorm)
 TRAIN_BATCH = 64
 TRAIN_LAUNCHES = dict(upsample2x_add=32, upsample2x_add_bwd=32, maxpool2x2_fwd=33,
-                      maxpool2x2_bwd_first=33, render_gaussian=1)
+                      maxpool2x2_bwd_first=33, render_gaussian=1, **bn_launches(FLAGSHIP_BN))
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 DS_KW = dict(num_samples=64, inp_res=RES, out_res=RES // 4, sigma=1,
              scale_factor=0.25, rot_factor=30)
@@ -448,12 +482,15 @@ TOL_PP_GRAD = {'eval': 8e-7, 'train': 1e-5}
 # (b) bf16 timing: global batch 32 in 4 microbatches of 8, the raw step
 # (device pipeline); per step and stage the launches: per microbatch stage
 # 0 runs the stem's pool and its 4 stacks' 16 pools and 16 merges, stage 1
-# its stacks', forward and backward, and each stage renders the targets
+# its stacks', forward and backward, each stage renders the targets, and
+# every BatchNorm of a stage runs once a microbatch
 PP_GLOBAL_BATCH, PP_M, PP_WARMUP, PP_TIMED = 32, 4, 3, 5
 PP_LAUNCHES = [dict(maxpool2x2_fwd=68, maxpool2x2_bwd_first=68, upsample2x_add=64,
-                    upsample2x_add_bwd=64, render_gaussian=1),
+                    upsample2x_add_bwd=64, render_gaussian=1,
+                    **bn_launches(PP_M * (STEM_BN + 4 * STACK_BN))),
                dict(maxpool2x2_fwd=64, maxpool2x2_bwd_first=64, upsample2x_add=64,
-                    upsample2x_add_bwd=64, render_gaussian=1)]
+                    upsample2x_add_bwd=64, render_gaussian=1,
+                    **bn_launches(PP_M * 4 * STACK_BN))]
 # (c) the trainer CLI on the two stages: one epoch of 4 steps at batch 32,
 # validation of the merged model (4 batches, 16 rows a rank), a snapshot;
 # evaluate_only of it on both ranks (each the whole validation set, 4
@@ -664,7 +701,8 @@ def kernel_row(name, source, replaces, got, ref, ms: dict, plain_ms, bound,
     other = 'hot' if timing == 'cold' else 'cold'
     return dict(name=name, route='cuda',
                 source=f'hourglass_pose_estimation_torch/csrc/{source}',
-                replaces=f'hourglass_pose_estimation_tpu/ops/pallas/{replaces}',
+                replaces=(f'hourglass_pose_estimation_tpu/ops/pallas/{replaces}' if replaces
+                          else 'none (the JAX package leaves it to XLA)'),
                 launches=0, max_abs_err=max_abs_err(got, ref),
                 ms=ms[timing], **{f'ms_{other}': ms[other]}, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms[timing],
@@ -874,6 +912,140 @@ def kernel_phases(seed: int):
                 bound_ms=bound_ms(one.numel(), 4.0 * (one.numel() + 48), PEAK_F32)[0]),
         library='none: no one PyTorch call takes the argmax with its offsets'))
     print('decode: ' + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def batchnorm_kernel_phases(seed: int):
+    """The fused train-mode BatchNorm's four kernels at the flagship's
+    largest BatchNorm, [64, 64^2, 256] bf16, and MSPN's, [128, 64^2, 256],
+    with the ReLU and a bf16 output: each against its plain version (the
+    statistics within TOL_BN_STATS, the apply bit for bit given them, the
+    backward's vectors within 1e-4 and dx within 4e-3 relative L2), its
+    cold and hot device ms, its byte bound (6N bytes forward, 10N back, and
+    the reductions' partial sums written and read) and share, the plain
+    chain's ms (CUDA events: the plain versions' forward, and autograd's
+    backward of it, the forward's time taken off) as the yardstick, and
+    cold and hot ms of PyTorch's own channels-last train-mode BatchNorm
+    kernels (SyncBatchNorm's four steps) doing the same work: statistics
+    (`torch.batch_norm_stats`), apply (`torch.batch_norm_elemt`, then the
+    ReLU in place: it writes its input's dtype), the backward's reduction
+    (the ReLU's mask, `threshold_backward`, then
+    `torch.batch_norm_backward_reduce`) and dx
+    (`torch.batch_norm_backward_elemt`), each held to the kernels' result
+    within LIBRARY_BN_TOL (its variance is the two-pass form, not JAX's
+    one-pass, and it has no sampled rows)."""
+    import torch
+    from hourglass_pose_estimation_torch.ops.hopper import (
+        batch_moments_reference, batch_norm_reference, batch_norm_train_bwd,
+        batch_norm_train_bwd_reduce, batch_norm_train_fwd, batch_norm_train_stats,
+        batch_stats_reference)
+    from hourglass_pose_estimation_torch.ops.hopper import _build
+    from hourglass_pose_estimation_torch.ops.hopper.batchnorm import (
+        batch_norm_bwd_reduce_reference, batch_norm_bwd_reference)
+
+    dev = torch.device('cuda')
+    gen = torch.Generator().manual_seed(seed + 11)
+    bf16, eps = torch.bfloat16, 1e-5
+    rows = []
+    for b, cell in ((BATCH, 'hg8'), (MSPN_TRAIN_BATCH_BN, 'mspn')):
+        C, H = 256, RES // 4
+        shape = f'[{b},{C},{H},{H}] bf16 channels-last'
+        nchw = lambda t: t.to(dev, bf16).permute(0, 3, 1, 2)
+        x = nchw(torch.randn(b, H, H, C, generator=gen) * 2 + 0.5)
+        g = nchw(torch.randn(b, H, H, C, generator=gen))
+        w = (torch.rand(C, generator=gen) + 0.5).to(dev)
+        bias = (0.5 * torch.randn(C, generator=gen)).to(dev)
+        count = b * H * H
+        moments = batch_norm_train_stats(x, b, count)
+        mean, var = batch_stats_reference(moments, 1.0)
+        rmean, rvar = batch_stats_reference(batch_moments_reference(x, b, count), 1.0)
+        stats_err = max(float(((mean - rmean).abs() / (rmean.abs() + rvar.sqrt())).max()),
+                        float(((var - rvar).abs() / (rvar + rmean.square())).max()))
+        check(stats_err <= TOL_BN_STATS,
+              f'bn stats {shape}: {stats_err:.3e} from the plain version')
+        y, _, _ = batch_norm_train_fwd(x, moments, w, bias, None, None, 1.0, 0.9, eps, True, bf16)
+        y_ref = batch_norm_reference(x, mean, var, w, bias, eps, True, bf16)
+        check(torch.equal(y, y_ref), f'bn apply {shape} differs from its plain version')
+        dw, db, cot = batch_norm_train_bwd_reduce(g, x, moments, w, bias, 1.0, eps, True)
+        red_ref = batch_norm_bwd_reduce_reference(g, x, moments, w, bias, 1.0, eps, True)
+        red_err = max(rel_l2(a, r) for a, r in zip((dw, db, cot), red_ref))
+        check(red_err <= 1e-4, f'bn bwd reduce {shape}: {red_err:.3e} from its plain version')
+        dx = batch_norm_train_bwd(g, x, moments, w, bias, red_ref[2], b, count, 1.0, eps, True)
+        # the plain version on x in f32, rounded once to bf16 as the kernel
+        # rounds (in bf16 it rounds its two parts, as JAX does)
+        dx_ref = batch_norm_bwd_reference(g, x.float(), moments, w, bias, red_ref[2], b, count,
+                                          1.0, eps, True).to(bf16)
+        check(rel_l2(dx, dx_ref) <= 4e-3, f'bn bwd dx {shape}: {rel_l2(dx, dx_ref):.3e}')
+        torch.cuda.synchronize()
+
+        def plain_fwd(x=x):
+            m, v = batch_stats_reference(batch_moments_reference(x, b, count), 1.0)
+            return batch_norm_reference(x, m, v, w, bias, eps, True, bf16)
+
+        def plain_fwd_bwd():
+            with torch.enable_grad():      # main() runs the kernel phases under no_grad
+                xr = x.detach().requires_grad_()
+                plain_fwd(xr).backward(g)
+
+        plain_f = time_ms(plain_fwd, 10)
+        plain_b = time_ms(plain_fwd_bwd, 10) - plain_f
+
+        # PyTorch's own kernels for the same work
+        lib_mean, lib_invstd = torch.batch_norm_stats(x, eps)
+        lib_y = torch.batch_norm_elemt(x, w, bias, lib_mean, lib_invstd, eps).relu_()
+        lib_dy = torch.ops.aten.threshold_backward(g, lib_y, 0)
+        lib_sum_dy, lib_sum_dy_xmu, lib_dw, lib_db = torch.batch_norm_backward_reduce(
+            lib_dy, x, lib_mean, lib_invstd, w, True, True, True)
+        lib_count = torch.tensor([count], dtype=torch.int32, device=dev)
+        lib_dx = torch.batch_norm_backward_elemt(lib_dy, x, lib_mean, lib_invstd, w, lib_sum_dy,
+                                                 lib_sum_dy_xmu, lib_count)
+        lib_err = dict(mean=rel_l2(lib_mean, mean), y=rel_l2(lib_y, y),
+                       dweight=rel_l2(lib_dw, dw), dbias=rel_l2(lib_db, db),
+                       dx=rel_l2(lib_dx, dx))
+        check(max(lib_err.values()) <= LIBRARY_BN_TOL,
+              f'bn {shape}: PyTorch\'s BatchNorm kernels differ from the fused ones {lib_err}')
+        library = (
+            (lambda x: torch.batch_norm_stats(x, eps), (x,)),
+            (lambda x, m, s: torch.batch_norm_elemt(x, w, bias, m, s, eps).relu_(),
+             (x, lib_mean, lib_invstd)),
+            (lambda g, y, x, m, s: torch.batch_norm_backward_reduce(
+                torch.ops.aten.threshold_backward(g, y, 0), x, m, s, w, True, True, True),
+             (g, lib_y, x, lib_mean, lib_invstd)),
+            (lambda dy, x, m, s: torch.batch_norm_backward_elemt(
+                dy, x, m, s, w, lib_sum_dy, lib_sum_dy_xmu, lib_count),
+             (lib_dy, x, lib_mean, lib_invstd)))
+        library_calls = ('batch_norm_stats', 'batch_norm_elemt + relu_',
+                         'threshold_backward + batch_norm_backward_reduce',
+                         'batch_norm_backward_elemt')
+        N = x.numel()
+        blocks = _build.library().hpe_bn_reduce_blocks(count, C, _build.num_sms(x))
+        partial = 2.0 * blocks * 2 * C * 4
+        vec = 4.0 * C
+        specs = (
+            ('batch_norm_train_stats', batch_norm_train_stats, (x, b, count), moments, moments,
+             2.0 * N + partial + 2 * vec, 3.0 * N, plain_f),
+            ('batch_norm_train_fwd', batch_norm_train_fwd,
+             (x, moments, w, bias, None, None, 1.0, 0.9, eps, True, bf16), y, y_ref,
+             4.0 * N + 7 * vec, 5.0 * N, plain_f),
+            ('batch_norm_train_bwd_reduce', batch_norm_train_bwd_reduce,
+             (g, x, moments, w, bias, 1.0, eps, True), cot, red_ref[2],
+             4.0 * N + partial + 8 * vec, 8.0 * N, plain_b),
+            ('batch_norm_train_bwd', batch_norm_train_bwd,
+             (g, x, moments, w, bias, red_ref[2], b, count, 1.0, eps, True), dx, dx_ref,
+             6.0 * N + 6 * vec, 8.0 * N, plain_b))
+        for (name, fn, args, got, ref, nbytes, flops, plain), (lib_fn, lib_args), lib_call in zip(
+                specs, library, library_calls):
+            rows.append(kernel_row(
+                name, 'batchnorm.cu', None, got, ref, cold_hot_ms(fn, args), plain,
+                bound_ms(flops, nbytes, PEAK_F32), cold_hot_ms(lib_fn, lib_args), shape=shape,
+                cell=cell,
+                reduce_blocks=blocks if 'stats' in name or 'reduce' in name else None,
+                plain='the plain chain forward' if 'fwd' in name or 'stats' in name
+                else "autograd's backward of the plain chain",
+                library=f'torch.{lib_call} (channels-last)', library_err=lib_err))
+            print(f'bn {name} ({cell}): ' + json.dumps(rows[-1]), flush=True)
+        del x, g, y, y_ref, dx, dx_ref, lib_y, lib_dy, lib_dx
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1460,16 +1632,17 @@ def trainer_phase(paths: dict, tmp: str) -> dict:
           f'trainer: {steps} steps, val batches {len(first.val_loader)}')
 
     # launches, worked out from the code: per train step 32 + 32 upsample,
-    # 33 + 33 pool and 1 render; per validation batch 65 fused bottlenecks,
-    # 32 upsample, 33 pool and 1 render; the frozen epoch adds 65 fused
-    # bottleneck forwards and 65 backward calls of its Function per step
+    # 33 + 33 pool, 1 render and the BatchNorms' kernels; per validation
+    # batch 65 fused bottlenecks, 32 upsample, 33 pool and 1 render; the
+    # frozen epoch runs no BatchNorm kernel and adds 65 fused bottleneck
+    # forwards and 65 backward calls of its Function per step
     per_step = TRAIN_LAUNCHES
     per_val = eval_launches()
     total = {}
     epochs = [(run, h, c) for run in runs for h, c in zip(run.history, run.counts)]
     for run, h, c in epochs:
         frozen = h['epoch'] > FREEZE_BN_AFTER
-        want = dict(per_step, **({fused_name(): 65} if frozen else {}))
+        want = dict(without_bn(per_step), **{fused_name(): 65}) if frozen else per_step
         expect_counts(c['train'], f"trainer epoch {h['epoch']} train",
                       **{k: v * steps for k, v in want.items()})
         check(c['backward_calls'] == (65 * steps if frozen else 0),
@@ -2087,7 +2260,7 @@ def mspn_train_phase(seed: int, raw, spec, batch: int, paths: dict):
     zero_counts()
     state, m = step(state, raw, seed)
     losses = [float(m['loss'])]
-    expect_counts(read_counts(), 'mspn train step', render_gaussian=1)
+    expect_counts(read_counts(), 'mspn train step', render_gaussian=1, **bn_launches(MSPN_BN))
     for _ in range(TRAIN_WARMUP - 1):
         state, m = step(state, raw, seed)
         losses.append(float(m['loss']))
@@ -2099,7 +2272,8 @@ def mspn_train_phase(seed: int, raw, spec, batch: int, paths: dict):
         losses.append(float(m['loss']))              # waits for the step
         times.append(time.perf_counter() - t0)
     paths['mspn_train'] = launches = read_counts()
-    expect_counts(launches, f'mspn: {TRAIN_TIMED} train steps', render_gaussian=TRAIN_TIMED)
+    expect_counts(launches, f'mspn: {TRAIN_TIMED} train steps', render_gaussian=TRAIN_TIMED,
+                  **bn_launches(MSPN_BN * TRAIN_TIMED))
     check(all(l == l and abs(l) < float('inf') for l in losses), f'mspn train: losses {losses}')
     check(losses[-1] < losses[0], f'mspn train: step {len(losses)} loss not below step 1: {losses}')
     step_ms = sorted(times)[len(times) // 2] * 1e3
@@ -2248,7 +2422,7 @@ def mspn_trainer_phase(paths: dict, tmp: str) -> dict:
     total = {}
     for h, c in zip(tr.history, tr.counts):
         expect_counts(c['train'], f"mspn trainer epoch {h['epoch']} train",
-                      render_gaussian=MSPN_STEPS)
+                      render_gaussian=MSPN_STEPS, **bn_launches(MSPN_BN * MSPN_STEPS))
         expect_counts(c['val'], f"mspn trainer epoch {h['epoch']} val", render_gaussian=nval)
         for k in c['train']:
             total[k] = total.get(k, 0) + c['train'][k] + c['val'][k]
@@ -3471,7 +3645,8 @@ def tp_rank(work: str, seed: int) -> int:
     zero_counts()
     state, m = make_train_step(spec, freeze_bn=True, mesh=mesh)(state, raw, seed)
     frozen = dict(loss=float(m['loss']), launches=read_counts())
-    expect_counts(frozen['launches'], f'tp rank {rank}: frozen-BN step', **TRAIN_LAUNCHES)
+    expect_counts(frozen['launches'], f'tp rank {rank}: frozen-BN step',
+                  **without_bn(TRAIN_LAUNCHES))
     timed = times[TP_WARMUP:]
     out['timed'] = dict(losses=losses, step_ms=[t * 1e3 for t in times], step_ms_p50=p50(timed),
                         global_images_per_s=TP_GLOBAL_BATCH / p50(timed) * 1e3,
@@ -3638,9 +3813,11 @@ def tp_ranks_phase(seed: int, paths: dict, tmp: str) -> dict:
               f"tp rank {r['model_rank']}: {first['steps']} steps")
         total = dict(r['timed']['launches'])
         for run in (first, resumed):
-            for c in run['counts']:
+            for h, c in zip(run['history'], run['counts']):
+                # TP_TRAINER freezes BN after epoch 1
+                per_step = TRAIN_LAUNCHES if h['epoch'] <= 1 else without_bn(TRAIN_LAUNCHES)
                 expect_counts(c['train'], f"tp rank {r['model_rank']} trainer train",
-                              **{k: v * run['steps'] for k, v in TRAIN_LAUNCHES.items()})
+                              **{k: v * run['steps'] for k, v in per_step.items()})
                 expect_counts(c['val'], f"tp rank {r['model_rank']} trainer val",
                               **{k: v * run['val_batches'] for k, v in eval_launches().items()})
                 for k in total:
@@ -3767,7 +3944,8 @@ def main(argv=None) -> int:
 
     # 3. kernels vs plain
     with torch.no_grad():
-        rows = kernel_phases(args.seed) + training_kernel_phases(args.seed)
+        rows = (kernel_phases(args.seed) + training_kernel_phases(args.seed)
+                + batchnorm_kernel_phases(args.seed))
     paths = {}
 
     # 4. the serving path at full width, built as serve_http builds it

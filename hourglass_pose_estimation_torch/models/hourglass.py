@@ -83,7 +83,7 @@ class HourglassNet(nn.Module):
         """x: [B, H, W, 3] -> [S, B, H/4, W/4, num_classes]."""
         dt = self.compute_dtype
         x = x.permute(0, 3, 1, 2).to(dt)
-        x = torch.relu(self.bn1(self.conv1(x), train)).to(dt)
+        x = self.bn1(self.conv1(x), train, relu=True, out_dtype=dt)
         x = self.layer1(x, train)
         x = max_pool(x, self.fuse_upsample)
         x = self.layer2(x, train)
@@ -92,7 +92,7 @@ class HourglassNet(nn.Module):
         for i in range(self.num_stacks):
             m = lambda name: getattr(self, f'{name}{i}')
             y = m('res')(self._hourglass(m('hg'), x, train), train)
-            y = torch.relu(m('fc_bn')(m('fc')(y), train)).to(dt)
+            y = m('fc_bn')(m('fc')(y), train, relu=True, out_dtype=dt)
             score = m('score')(y)
             outs.append(score.to(self.out_dtype).permute(0, 2, 3, 1))
             if i < self.num_stacks - 1:
@@ -147,7 +147,7 @@ class HourglassStem(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.compute_dtype
         x = x.permute(0, 3, 1, 2).to(dt)
-        x = torch.relu(self.bn1(self.conv1(x), train)).to(dt)
+        x = self.bn1(self.conv1(x), train, relu=True, out_dtype=dt)
         x = self.layer1(x, train)
         x = max_pool(x, self.fuse_upsample)
         return self.layer3(self.layer2(x, train), train)
@@ -194,7 +194,7 @@ class HourglassStack(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False):
         y = self.res(self.hg(x, train), train)
-        y = torch.relu(self.fc_bn(self.fc(y), train)).to(self.compute_dtype)
+        y = self.fc_bn(self.fc(y), train, relu=True, out_dtype=self.compute_dtype)
         score = self.score(y)
         x_next = x + self.fc_back(y) + self.score_back(score)
         return score.to(self.out_dtype).permute(0, 2, 3, 1), x_next

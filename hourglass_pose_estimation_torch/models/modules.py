@@ -6,7 +6,8 @@ Tensors are NCHW-shaped in `torch.channels_last` memory format, so the
 physical layout is NHWC: the Hopper kernels read it as it is (through a
 permuted view) and cuDNN's channels-last convolutions use it too.
 Parameters are f32; convolutions compute in `dtype` (bf16 by default);
-BatchNorm math and output are f32. Submodules are named after the flax
+BatchNorm math is f32, and a BatchNorm ahead of a conv applies the ReLU
+and writes the conv's dtype itself. Submodules are named after the flax
 paths (`up1_l4.block0.bn1`, ...), which is what `weights.py` relies on.
 """
 
@@ -173,9 +174,10 @@ class Bottleneck(nn.Module):
             y = fused_bottleneck(x.to(self.compute_dtype).permute(0, 2, 3, 1),
                                  self._folded())
             return y.permute(0, 3, 1, 2)
-        out = self.conv1(torch.relu(self.bn1(x, train)))
-        out = self.conv2(torch.relu(self.bn2(out, train)))
-        out = self.conv3(torch.relu(self.bn3(out, train)))
+        dt = self.compute_dtype
+        out = self.conv1(self.bn1(x, train, relu=True, out_dtype=dt))
+        out = self.conv2(self.bn2(out, train, relu=True, out_dtype=dt))
+        out = self.conv3(self.bn3(out, train, relu=True, out_dtype=dt))
         residual = x if self.downsample is None else self.downsample(x)
         return out + residual.to(out.dtype)
 

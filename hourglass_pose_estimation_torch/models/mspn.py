@@ -61,10 +61,7 @@ class ConvBN(nn.Module):
             nn.init.zeros_(self.bn.weight)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = self.bn(self.conv(x), train)
-        if self.relu:
-            y = torch.relu(y)
-        return y.to(self.compute_dtype)
+        return self.bn(self.conv(x), train, relu=self.relu, out_dtype=self.compute_dtype)
 
 
 class MSPNBottleneck(nn.Module):

@@ -2,9 +2,11 @@
 
 Port of `hourglass_pose_estimation_tpu/models/norm.py::BatchNorm`: f32
 `weight`/`bias` parameters and `running_mean`/`running_var` buffers, the
-formula `(x - mean) * (weight * rsqrt(var + eps)) + bias` in at least f32,
-and an f32 (or wider) output that the next conv casts to its compute
-dtype. Eval mode normalises with the running averages. Train mode
+formula `(x - mean) * (weight * rsqrt(var + eps)) + bias` in at least f32.
+The forward takes what its caller applies next: `relu=True` applies the
+ReLU, and `out_dtype` casts the result (the next conv's compute dtype);
+without them the output is the f32 (or wider) normalisation, as the JAX
+BatchNorm's. Eval mode normalises with the running averages. Train mode
 normalises with the batch statistics, taken from the first
 `stat_samples` samples when 0 < stat_samples < B, and updates the running
 averages in place to `momentum * ra + (1 - momentum) * batch` with the
@@ -14,6 +16,14 @@ two-pass E[(x - mean)^2].
 
 Not `torch.nn.BatchNorm2d`: its running update uses the unbiased
 variance, and it has no sampled statistics.
+
+A train-mode forward with the one-pass variance runs the fused
+BatchNorm's autograd Function (`ops/hopper/batchnorm.py::batch_norm_train`)
+under every row rule below, on any device: on the card its kernels
+(statistics, then normalisation with the ReLU and the cast, and two
+kernels back), which take a channels-last bf16 or f32 activation with C a
+multiple of 8 and raise on any other; on the CPU their plain versions.
+Eval mode and the two-pass variance take the plain math.
 
 Cross-rank statistics (`axis_name='data'`, set on a built model by
 `sync_batch_norm`; flax's `axis_name`): a train-mode forward averages the
@@ -55,10 +65,14 @@ second time, as the JAX package's functional remat does.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from hourglass_pose_estimation_torch.ops.hopper.batchnorm import (
+    StatRows, batch_norm_reference, batch_norm_train, running_update_reference)
 
 # the mesh axis BatchNorm statistics sync over: data parallelism
 DATA_AXIS = 'data'
@@ -70,21 +84,6 @@ def _data_world_size(group) -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(group)
     return 1
-
-
-class _MeanOverRanks(torch.autograd.Function):
-    """pmean over the data group: SUM all-reduce / world, and the same in
-    the backward (the transpose of a pmean). `mean=False` is the sum form,
-    psum, whose transpose is a psum too."""
-
-    @staticmethod
-    def forward(ctx, x, mean: bool = True, group=None):
-        ctx.mean, ctx.group = mean, group
-        return _all_reduce(x, mean, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g, ctx.mean, ctx.group), None, None
 
 
 def _all_reduce(x: torch.Tensor, mean: bool, group) -> torch.Tensor:
@@ -122,19 +121,44 @@ class BatchNorm(nn.Module):
                              f'{DATA_AXIS!r} (data parallelism)')
         self.axis_name = axis_name
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        sdt = torch.promote_types(torch.float32, x.dtype)
-        shape = (1, -1, 1, 1)
-        if train:
-            mean, var = self._batch_stats(x, sdt)
-            if self.update_stats:
-                self._update_running(mean, var)
-        else:
+    def forward(self, x: torch.Tensor, train: bool = False, relu: bool = False,
+                out_dtype=None) -> torch.Tensor:
+        """Normalise x [B, C, H, W] over dim 1, then the ReLU when `relu`, and
+        the cast to `out_dtype` when given (else the f32 or wider math's
+        dtype)."""
+        if not train:
             mean, var = self._running_stats()
+            weight, bias = self._affine()
+            return batch_norm_reference(x, mean, var, weight, bias, self.eps, relu, out_dtype)
+        if self.axis_name is not None and not self.fast_variance:
+            raise ValueError('fast_variance=False is a single-shard numerical-parity '
+                             'mode; axis_name sync needs the one-pass form')
+        rows, mean_form = self._stat_rows(x)
+        if self.fast_variance:
+            return self._fused(x, rows, mean_form, relu, out_dtype)
+        xs = x[:rows.samples].to(torch.promote_types(torch.float32, x.dtype))
+        mean = xs.mean(dim=(0, 2, 3))
+        var = (xs - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+        if self.update_stats:
+            self._update_running(mean, var)
         weight, bias = self._affine()
-        mul = weight.to(sdt) * torch.rsqrt(var.to(sdt) + self.eps)
-        return ((x.to(sdt) - mean.to(sdt).view(shape))
-                * mul.view(shape) + bias.to(sdt).view(shape))
+        return batch_norm_reference(x, mean, var, weight, bias, self.eps, relu, out_dtype)
+
+    def _fused(self, x, rows: StatRows, mean_form, relu: bool, out_dtype) -> torch.Tensor:
+        """The one-pass train-mode forward through the fused BatchNorm's
+        autograd Function; the running averages move in its forward op where
+        `_update_running` is BatchNorm's own, else through the override."""
+        own = type(self)._update_running is BatchNorm._update_running
+        if mean_form is not None:
+            rows = rows._replace(sync=functools.partial(_all_reduce, mean=mean_form,
+                                                        group=self.group))
+        weight, bias = self._affine()
+        running = (self.running_mean, self.running_var) if self.update_stats and own else None
+        y, mean, var = batch_norm_train(x, weight, bias, rows, running, self.momentum,
+                                        self.eps, relu, out_dtype)
+        if self.update_stats and not own:
+            self._update_running(mean, var)
+        return y
 
     def _affine(self):
         """(scale, bias) over every channel."""
@@ -144,38 +168,23 @@ class BatchNorm(nn.Module):
         """(running mean, running variance) over every channel."""
         return self.running_mean, self.running_var
 
-    def _batch_stats(self, x: torch.Tensor, sdt):
-        """(mean, biased variance) of the train-mode statistics' rows."""
-        k, axes = self.stat_samples, (0, 2, 3)
-        if self.axis_name is not None and not self.fast_variance:
-            raise ValueError('fast_variance=False is a single-shard numerical-parity '
-                             'mode; axis_name sync needs the one-pass form')
+    def _stat_rows(self, x: torch.Tensor):
+        """The train-mode statistics' rows of x: (StatRows, and whether they
+        sync over the data group as a mean of the ranks' moments (True), as
+        sums (False), or not at all (None))."""
+        k, b = self.stat_samples, x.shape[0]
+        hw = x.shape[2] * x.shape[3]
         world = _data_world_size(self.group) if self.axis_name is not None else 1
-        if world == 1:
-            xs = (x[:k] if 0 < k < x.shape[0] else x).to(sdt)
-            mean = xs.mean(dim=axes)
-            if self.fast_variance:
-                return mean, torch.clamp_min(xs.square().mean(dim=axes) - mean.square(), 0.0)
-            return mean, (xs - mean.view(1, -1, 1, 1)).square().mean(dim=axes)
-        b = x.shape[0]
-        if self.global_rows and 0 < k < world * b:
+        if world > 1 and self.global_rows and 0 < k < world * b:
             # the global batch's first k rows: this rank's share of them
             n = min(max(k - dist.get_rank(self.group) * b, 0), b)
-            xs = x[:n].to(sdt)
-            sums = torch.stack([xs.sum(dim=axes), xs.square().sum(dim=axes)])
-            mean, mean2 = (_MeanOverRanks.apply(sums, False, self.group)
-                           / (k * x.shape[2] * x.shape[3]))
-        else:
-            xs = (x[:k] if 0 < k < b else x).to(sdt)
-            mean, mean2 = _MeanOverRanks.apply(
-                torch.stack([xs.mean(dim=axes), xs.square().mean(dim=axes)]), True, self.group)
-        return mean, torch.clamp_min(mean2 - mean.square(), 0.0)
+            return StatRows(n, 1, k * hw), False
+        n = k if 0 < k < b else b
+        return StatRows(n, n * hw, 1), (True if world > 1 else None)
 
-    @torch.no_grad()
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        m = self.momentum
-        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        running_update_reference(self.running_mean, self.running_var, mean, var,
+                                 self.momentum)
 
 
 @contextlib.contextmanager

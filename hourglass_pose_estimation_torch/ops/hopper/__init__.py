@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels (CUDA C++, `csrc/`), each beside its plain
 PyTorch version. A wrapper given CPU tensors runs the plain version; given
 CUDA tensors it launches its kernel or raises. `upsample2x_add`,
-`maxpool2x2` and `fused_bottleneck` are differentiable (autograd
-Functions over the forward and backward wrappers); `fused_bottleneck` runs
-one of two kernels, `fused_bottleneck_image` or `fused_bottleneck_chunked`
+`maxpool2x2`, `fused_bottleneck` and `batch_norm_train` are
+differentiable (autograd Functions over the forward and backward
+wrappers); `fused_bottleneck` runs one of two kernels,
+`fused_bottleneck_image` or `fused_bottleneck_chunked`
 (`bottleneck.DEFAULT_IMPL` unless the call names one).
 
 Every kernel is a `torch.library` op in the `hpe` namespace (the launch
@@ -13,6 +14,10 @@ launch) and a fake for shapes. So eager calls and `torch.export` take the
 same route, and an exported program keeps one `hpe::` node a launch; a
 process loads such a program only after importing this package."""
 
+from hourglass_pose_estimation_torch.ops.hopper.batchnorm import (
+    StatRows, batch_moments_reference, batch_norm_reference, batch_norm_train,
+    batch_norm_train_bwd, batch_norm_train_bwd_reduce, batch_norm_train_fwd,
+    batch_norm_train_stats, batch_stats_reference, running_update_reference)
 from hourglass_pose_estimation_torch.ops.hopper.bottleneck import (
     BottleneckParams, bottleneck_backward_reference, bottleneck_reference,
     fold_bn, fused_bottleneck, fused_bottleneck_chunked, fused_bottleneck_image,
@@ -36,7 +41,9 @@ from hourglass_pose_estimation_torch.utils import tracing
 KERNEL_WRAPPERS = (fused_bottleneck_image, fused_bottleneck_chunked,
                    upsample2x_add, decode_peaks,
                    upsample2x_add_bwd, maxpool2x2_fwd, maxpool2x2_bwd,
-                   maxpool2x2_bwd_first, render_gaussian)
+                   maxpool2x2_bwd_first, render_gaussian,
+                   batch_norm_train_stats, batch_norm_train_fwd,
+                   batch_norm_train_bwd_reduce, batch_norm_train_bwd)
 
 
 def launch_counts() -> dict:

@@ -31,7 +31,9 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry point -> argument types (every one returns cudaError_t as int)
+_L = ctypes.c_longlong
+# C entry point -> argument types (each returns cudaError_t as int, but
+# hpe_bn_reduce_blocks, which returns a block count)
 SIGNATURES = {
     'hpe_bottleneck_fwd': [_P] * 14 + [_I] * 6 + [_P],
     'hpe_bottleneck_smem_bytes': [_I, _I],
@@ -43,6 +45,13 @@ SIGNATURES = {
     'hpe_maxpool2x2_bwd': [_P, _P, _P] + [_I] * 7 + [_P],
     'hpe_render_gaussian': [_P, _P, _P] + [_I] * 5 + [_F, _I, _P],
     'hpe_decode_peaks': [_P, _P, _P] + [_I] * 8 + [_P],
+    'hpe_bn_reduce_blocks': [_L, _I, _I],
+    'hpe_bn_stats': [_P, _L, _I, _I, _F, _P, _I, _P, _P, _P],
+    'hpe_bn_apply': [_P, _I, _P, _I, _L, _I, _P, _F, _P, _P, _F, _I, _P, _P, _P, _P,
+                     _F, _F, _I, _P],
+    'hpe_bn_bwd_reduce': [_P, _I, _P, _I, _L, _I, _P, _F, _P, _P, _F, _I, _P, _I, _P, _P,
+                          _P, _P, _P, _P],
+    'hpe_bn_bwd_dx': [_P, _I, _P, _I, _P, _L, _L, _I, _P, _F, _P, _P, _F, _I, _P, _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -121,6 +130,9 @@ def build() -> tuple:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
+    lib = _loaded.get('lib')
+    if lib is not None:
+        return lib
     with _lock:
         lib = _loaded.get('lib')
         if lib is None:
@@ -137,18 +149,28 @@ def library() -> ctypes.CDLL:
 
 def stream_for(t) -> int:
     """Handle of the current stream of t's device, which must be the
-    current device (the kernels launch there)."""
+    current device (the kernels launch there). Through the raw calls that
+    `torch.cuda.current_stream` wraps: a train step asks a few thousand
+    times, and the wrapper costs ~3.5 us a call."""
     import torch
-    if t.device.index != torch.cuda.current_device():
+    index = t.device.index
+    if index != torch._C._cuda_getDevice():
         raise ValueError(f'tensor on {t.device}, current device is '
                          f'cuda:{torch.cuda.current_device()}')
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+_sms = {}
 
 
 def num_sms(t) -> int:
     """Streaming multiprocessors of t's device."""
-    import torch
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+    n = _sms.get(t.device.index)
+    if n is None:
+        import torch
+        n = _sms[t.device.index] = torch.cuda.get_device_properties(
+            t.device).multi_processor_count
+    return n
 
 
 def on_meta(*ts) -> bool:

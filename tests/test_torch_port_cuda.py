@@ -22,16 +22,22 @@ from hourglass_pose_estimation_torch.export import make_inference_fn
 from hourglass_pose_estimation_torch.models import get_model
 from hourglass_pose_estimation_torch.models.modules import Bottleneck, Hourglass
 from hourglass_pose_estimation_torch.models.hourglass import HourglassNet
+from hourglass_pose_estimation_torch.models.norm import BatchNorm
 from hourglass_pose_estimation_torch.ops.heatmap import render_preamble
 from hourglass_pose_estimation_torch.ops.hopper import (
-    KERNEL_WRAPPERS, bottleneck_backward_reference, bottleneck_reference,
+    KERNEL_WRAPPERS, batch_moments_reference, batch_norm_reference, batch_norm_train_bwd,
+    batch_norm_train_bwd_reduce, batch_norm_train_fwd, batch_norm_train_stats,
+    batch_stats_reference,
+    bottleneck_backward_reference, bottleneck_reference,
     decode_peaks, decode_peaks_reference, fused_bottleneck,
     fused_bottleneck_chunked, fused_bottleneck_image, launch_counts, maxpool2x2,
     maxpool2x2_bwd, maxpool2x2_bwd_first, maxpool2x2_bwd_first_reference,
     maxpool2x2_bwd_reference, maxpool2x2_fwd,
     maxpool2x2_reference, render_gaussian, render_gaussian_reference,
-    upsample2x_add, upsample2x_add_bwd, upsample2x_add_bwd_reference,
-    upsample2x_add_reference)
+    running_update_reference, upsample2x_add, upsample2x_add_bwd,
+    upsample2x_add_bwd_reference, upsample2x_add_reference)
+from hourglass_pose_estimation_torch.ops.hopper.batchnorm import (
+    batch_norm_bwd_reduce_reference, batch_norm_bwd_reference)
 from hourglass_pose_estimation_torch.runner import (
     init_state, make_optimizer, make_train_step)
 from hourglass_pose_estimation_torch.utils import tracing
@@ -56,6 +62,21 @@ def launched(wrapper) -> int:
 def _rel(a, b):
     a, b = a.detach().float(), b.detach().float()
     return float((a - b).norm() / b.norm())
+
+
+# BatchNorms of the hourglass: the stem's (bn1 and 3 bottlenecks), and a
+# stack's (13 chains of 1 bottleneck in a depth-4 hourglass, the residual
+# chain, fc_bn): 10 + 8 * 43 = 354 in the flagship
+STEM_BN, STACK_BN = 10, 43
+
+
+def bn_launches(fwd: int, bwd: int = None) -> dict:
+    """Launch counts of the fused BatchNorm's kernels: `fwd` forwards (the
+    statistics and the apply) and `bwd` backwards (the reduction and dx;
+    as many as forwards when None)."""
+    bwd = fwd if bwd is None else bwd
+    return dict(batch_norm_train_stats=fwd, batch_norm_train_fwd=fwd,
+                batch_norm_train_bwd_reduce=bwd, batch_norm_train_bwd=bwd)
 
 
 @pytest.mark.parametrize('shape', [(2, 16, 16), (1, 17, 24), (3, 64, 64), (1, 64, 64),
@@ -370,11 +391,13 @@ def test_small_train_step_launches_the_training_kernels(dev):
     losses = [float(step(state, raw, 0)[1]['loss']) for _ in range(3)]
     counts = launch_counts()
     # per step: 4 merges, 1 stem + 4 encoder pools (their backward gives a
-    # tie's gradient to the first maximum), 1 render
+    # tie's gradient to the first maximum), 1 render, and every BatchNorm
+    # through the fused kernels
     assert counts == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
                           upsample2x_add=12, decode_peaks=0,
                           upsample2x_add_bwd=12, maxpool2x2_fwd=15,
-                          maxpool2x2_bwd=0, maxpool2x2_bwd_first=15, render_gaussian=3)
+                          maxpool2x2_bwd=0, maxpool2x2_bwd_first=15, render_gaussian=3,
+                          **bn_launches(3 * (STEM_BN + STACK_BN)))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
@@ -387,8 +410,9 @@ def test_pipeline_step_on_two_ranks_launches_the_kernels(dev, tmp_path, backend)
     receiver's card. Then one pipelined train step of a 2-stack bf16 model
     (a stack a stage, 2 microbatches) with the kernels: per microbatch
     stage 0 runs the stem's pool and its stack's 4 pools and 4 merges,
-    stage 1 its stack's, each forward and backward, and each stage renders
-    the targets once."""
+    stage 1 its stack's, each forward and backward, each stage renders
+    the targets once, and every BatchNorm of a stage runs the fused
+    kernels once a microbatch."""
     if backend == 'nccl' and torch.cuda.device_count() < 2:
         pytest.skip('the NCCL pipeline needs two CUDA devices')
     with socket.socket() as sock:
@@ -410,12 +434,12 @@ def test_pipeline_step_on_two_ranks_launches_the_kernels(dev, tmp_path, backend)
                                           else ['cuda:0', 'cuda:1'])
     assert got[0]['loss'] == got[1]['loss'] and np.isfinite(got[0]['loss'])
     M = 2
-    for g, pools in zip(got, (M * 5, M * 4)):
+    for g, pools, bns in zip(got, (M * 5, M * 4), (M * (STEM_BN + STACK_BN), M * STACK_BN)):
         assert g['launches'] == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
                                      upsample2x_add=M * 4, decode_peaks=0,
                                      upsample2x_add_bwd=M * 4, maxpool2x2_fwd=pools,
                                      maxpool2x2_bwd=0, maxpool2x2_bwd_first=pools,
-                                     render_gaussian=1), g
+                                     render_gaussian=1, **bn_launches(bns)), g
 
 
 def test_overlapped_step_stages_on_a_side_stream(dev):
@@ -465,7 +489,8 @@ def test_tensor_parallel_step_on_two_ranks_launches_the_kernels(dev, tmp_path, b
     kernels: the loss is the same on both ranks, leaves are sharded, the
     model axis's collectives ran, and every rank, which sees the full
     activations, launches the one-process step's kernels: 4 merges, 1 stem
-    and 4 encoder pools, each forward and backward, and 1 render."""
+    and 4 encoder pools, each forward and backward, 1 render, and every
+    (sharded) BatchNorm through the fused kernels."""
     if backend == 'nccl' and torch.cuda.device_count() < 2:
         pytest.skip('the NCCL layout needs two CUDA devices')
     with socket.socket() as sock:
@@ -491,7 +516,8 @@ def test_tensor_parallel_step_on_two_ranks_launches_the_kernels(dev, tmp_path, b
         assert g['launches'] == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
                                      upsample2x_add=4, decode_peaks=0, upsample2x_add_bwd=4,
                                      maxpool2x2_fwd=5, maxpool2x2_bwd=0,
-                                     maxpool2x2_bwd_first=5, render_gaussian=1), g
+                                     maxpool2x2_bwd_first=5, render_gaussian=1,
+                                     **bn_launches(STEM_BN + STACK_BN)), g
 
 
 def test_trainer_stages_batches_on_a_side_stream(dev, tmp_path):
@@ -548,7 +574,7 @@ def test_predict_keypoints_on_the_card_matches_the_plain_path(dev):
     assert counts == dict(fused_bottleneck_image=0, fused_bottleneck_chunked=0,
                           upsample2x_add=8 * 3, decode_peaks=3, upsample2x_add_bwd=0,
                           maxpool2x2_fwd=10 * 3, maxpool2x2_bwd=0, maxpool2x2_bwd_first=0,
-                          render_gaussian=0)
+                          render_gaussian=0, **bn_launches(0))
     ref = ev.predict_keypoints(states[False])
     assert got.shape == (7, 16, 2) and np.isfinite(got).all()
     np.testing.assert_array_equal(got, ref)
@@ -603,8 +629,9 @@ def test_mspn_on_the_card_matches_the_cpu(dev):
     """A 2-stage MSPN (decoder width 64) at 64^2 in f32 on the card against
     the CPU, TF32 off: the train and eval forwards' heads within 1e-4
     relative L2 each, the train-mode running statistics too; in bf16 the
-    card's heads against the CPU's bf16 and f32 forwards. No port kernel
-    runs in the model (its stem pool is 3x3/2, its upsample bilinear), and
+    card's heads against the CPU's bf16 and f32 forwards. Of the port's
+    kernels only the fused train-mode BatchNorm runs in the model (its stem
+    pool is 3x3/2, its upsample bilinear), and
     the stem pool's backward gives each tie to the first maximum on the
     card too. The weights: each residual branch's last BN scale (`cbr3`)
     at 0.05 and running statistics of one batch (momentum 0). With scale 1
@@ -639,7 +666,8 @@ def test_mspn_on_the_card_matches_the_cpu(dev):
             assert _rel(got[h], ref[h]) <= 1e-4, (train, h, _rel(got[h], ref[h]))
     for a, b in zip(cpu.state_dict().values(), card.state_dict().values()):
         assert float((b.cpu() - a).abs().max()) <= 1e-4 * float(a.abs().max()) + 1e-7
-    assert not any(launch_counts().values())
+    # the train forward's BatchNorms, and no other kernel
+    assert launch_counts() == {w.__name__: 0 for w in KERNEL_WRAPPERS} | bn_launches(144, 0)
     bf16 = {}
     for d in ('cpu', dev):
         m = get_model('mspn', device=d, **kw)
@@ -710,7 +738,7 @@ def test_prepare_host_batch_on_the_card_matches_the_cpu(dev):
 
 
 def _cuda_op_cases(dev):
-    """Valid inputs on the card for each of the nine `hpe::` ops."""
+    """Valid inputs on the card for each of the `hpe::` ops."""
     torch.manual_seed(0)
     # detached: a folded vector may be the block's own bias parameter
     prm = [t.detach() for t in Bottleneck(256, 128).to(dev).fused_params()]
@@ -727,6 +755,28 @@ def _cuda_op_cases(dev):
         'maxpool2x2_bwd_first': (t(2, 8, 8, 64), t(2, 4, 4, 64)),
         'render_gaussian': (mu, torch.ones(2, 16, device=dev), 16, 12, 1.0),
         'decode_peaks': (t(2, 8, 8, 16),),
+        **_bn_op_cases(dev),
+    }
+
+
+def _bn_op_cases(dev):
+    """The fused BatchNorm's four ops on a channels-last [2, 64, 8, 8] bf16
+    activation: sampled statistics, the apply with the ReLU moving the
+    running buffers, and the backward's two ops."""
+    cl = torch.channels_last
+    act = lambda: torch.randn(2, 64, 8, 8, device=dev).to(torch.bfloat16).contiguous(
+        memory_format=cl)
+    x, g = act(), act()
+    w, b = torch.rand(64, device=dev) + 0.5, torch.randn(64, device=dev)
+    m = batch_norm_train_stats(x, 1, 64.0)
+    return {
+        'batch_norm_train_stats': (x, 1, 64.0),
+        'batch_norm_train_fwd': (x, m, w, b, torch.zeros(64, device=dev),
+                                 torch.ones(64, device=dev), 1.0, 0.9, 1e-5, True,
+                                 torch.bfloat16),
+        'batch_norm_train_bwd_reduce': (g, x, m, w, b, 1.0, 1e-5, True),
+        'batch_norm_train_bwd': (g, x, m, w, b, torch.randn(2, 64, device=dev), 1, 64.0, 1.0,
+                                 1e-5, True),
     }
 
 
@@ -764,3 +814,193 @@ def test_exported_flagship_program_keeps_the_kernels(dev, tmp_path):
             'maxpool2x2_fwd': 33, 'decode_peaks': 1}
     assert launches == {k: want.get(k, 0) for k in launches}
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+# (batch, H, W, C, x's dtype, y's dtype, relu, sampled k): the flagship's
+# shapes (64 x 128^2 x 64 at the stem to 64 x 4^2 x 256), MSPN's (128 x
+# 64^2 x 256 to 128 x 8^2 x 2048), a ragged M with C of 5 vectors of 8,
+# sampled rows, f32 in
+BN_CASES = [
+    (64, 128, 128, 64, torch.bfloat16, torch.bfloat16, True, 0),
+    (64, 64, 64, 256, torch.bfloat16, torch.bfloat16, True, 0),
+    (64, 4, 4, 256, torch.bfloat16, torch.bfloat16, True, 0),
+    (64, 32, 32, 128, torch.bfloat16, torch.bfloat16, False, 0),
+    (128, 64, 64, 256, torch.bfloat16, torch.bfloat16, True, 0),
+    (128, 32, 32, 512, torch.bfloat16, torch.bfloat16, False, 0),
+    (128, 16, 16, 1024, torch.bfloat16, torch.bfloat16, True, 0),
+    (128, 8, 8, 2048, torch.bfloat16, torch.bfloat16, False, 0),
+    (128, 8, 8, 2048, torch.bfloat16, torch.bfloat16, True, 32),
+    (3, 7, 5, 40, torch.bfloat16, torch.bfloat16, True, 2),
+    (64, 16, 16, 256, torch.float32, torch.float32, True, 16),
+    (16, 16, 16, 256, torch.float32, torch.bfloat16, False, 3),
+]
+# the statistics' f32 sums in another order than the plain version's: the
+# mean within 1e-5 of |mean| + std, the variance within 1e-5 of E[x^2]
+TOL_BN_STATS = 1e-5
+
+
+def _bn_inputs(dev, b, h, w, c, din, dout):
+    gen = torch.Generator(device=dev).manual_seed(b * 7 + h * 3 + c)
+    cl = lambda t: t.permute(0, 3, 1, 2)
+    x = cl((torch.randn(b, h, w, c, device=dev, generator=gen) * 2 + 0.5).to(din))
+    g = cl(torch.randn(b, h, w, c, device=dev, generator=gen).to(dout))
+    weight = torch.rand(c, device=dev, generator=gen) + 0.5
+    bias = torch.randn(c, device=dev, generator=gen) * 0.5
+    return x, g, weight, bias
+
+
+@pytest.mark.parametrize('b,h,w,c,din,dout,relu,k', BN_CASES)
+def test_batch_norm_kernels_match_plain(dev, b, h, w, c, din, dout, relu, k):
+    """The fused train-mode BatchNorm's four kernels against their plain
+    versions on the card: the statistics within TOL_BN_STATS; given those
+    statistics, the apply's output, mean and var, and the running averages
+    bit for bit; given the same moments, dweight, dbias and the moments'
+    cotangent within 1e-4 relative L2 (sums over every row in another
+    order), and dx within 1e-5 relative L2 in f32 and 4e-3 in bf16 (its
+    rounding, 2^-9 relative, on a few elements' f32 sums). Largest readings
+    over these cases on an H100: the mean 7.2e-8 and the variance 5.6e-7,
+    the backward's vectors 4.4e-7, dx 4.6e-7."""
+    x, g, weight, bias = _bn_inputs(dev, b, h, w, c, din, dout)
+    n = k if 0 < k < b else b
+    rm, rv = torch.randn(c, device=dev), torch.rand(c, device=dev) + 0.5
+    rm_ref, rv_ref = rm.clone(), rv.clone()
+    before = launch_counts()
+    moments = batch_norm_train_stats(x, n, n * h * w)
+    mean, var = batch_stats_reference(moments, 1.0)
+    ref_mean, ref_var = batch_stats_reference(batch_moments_reference(x, n, n * h * w), 1.0)
+    mean_err = float(((mean - ref_mean).abs() / (ref_mean.abs() + ref_var.sqrt())).max())
+    var_err = float(((var - ref_var).abs() / (ref_var + ref_mean.square())).max())
+    print(f'statistics against the plain version: mean {mean_err:.3e}, var {var_err:.3e}')
+    assert mean_err <= TOL_BN_STATS and var_err <= TOL_BN_STATS
+
+    y, kmean, kvar = batch_norm_train_fwd(x, moments, weight, bias, rm, rv, 1.0, 0.9, 1e-5,
+                                          relu, dout)
+    assert y.dtype == dout and y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(kmean, mean) and torch.equal(kvar, var)
+    assert torch.equal(y, batch_norm_reference(x, mean, var, weight, bias, 1e-5, relu, dout))
+    running_update_reference(rm_ref, rv_ref, mean, var, 0.9)
+    assert torch.equal(rm, rm_ref) and torch.equal(rv, rv_ref)
+
+    dw, db, cot = batch_norm_train_bwd_reduce(g, x, moments, weight, bias, 1.0, 1e-5, relu)
+    rdw, rdb, rcot = batch_norm_bwd_reduce_reference(g, x, moments, weight, bias, 1.0, 1e-5,
+                                                     relu)
+    errs = [_rel(dw, rdw), _rel(db, rdb), _rel(cot, rcot)]
+    dx = batch_norm_train_bwd(g, x, moments, weight, bias, rcot, n, n * h * w, 1.0, 1e-5, relu)
+    # the plain version on x in f32, rounded once to x's dtype as the kernel
+    # rounds (the plain version in bf16 rounds its two parts, as JAX does)
+    rdx = batch_norm_bwd_reference(g, x.float(), moments, weight, bias, rcot, n, n * h * w,
+                                   1.0, 1e-5, relu).to(din)
+    print(f'backward against the plain version: dweight, dbias, cot {errs}, '
+          f'dx {_rel(dx, rdx):.3e}')
+    assert max(errs) <= 1e-4
+    assert dx.dtype == din and dx.is_contiguous(memory_format=torch.channels_last)
+    assert _rel(dx, rdx) <= (1e-5 if din == torch.float32 else 4e-3)
+    after = launch_counts()
+    assert {n: after[n] - before[n] for n in bn_launches(0)} == bn_launches(1)
+
+
+def test_batch_norm_function_matches_the_plain_math(dev):
+    """The module's train-mode forward (the autograd Function over the
+    kernels) on the flagship's largest shape ([64, 256, 64^2] bf16, the
+    ReLU, a bf16 output) against autograd over the plain versions of the
+    forward on the same card: the output within one bf16 step where the
+    statistics' summation order moves it, the gradients within the
+    rounding of bf16, the running averages within f32 noise; and two runs
+    give the same bits (every sum in a fixed order)."""
+    x, g, weight, bias = _bn_inputs(dev, 64, 64, 64, 256, torch.bfloat16, torch.bfloat16)
+    count = x.shape[0] * x.shape[2] * x.shape[3]
+    outs = []
+    for fused in (True, True, False):
+        bn = BatchNorm(256).to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(weight)
+            bn.bias.copy_(bias)
+        xi = x.detach().requires_grad_()
+        if fused:
+            y = bn(xi, True, relu=True, out_dtype=torch.bfloat16)
+        else:
+            mean, var = batch_stats_reference(batch_moments_reference(xi, 64, count), 1.0)
+            running_update_reference(bn.running_mean, bn.running_var, mean, var, bn.momentum)
+            y = batch_norm_reference(xi, mean, var, bn.weight, bn.bias, bn.eps, True,
+                                     torch.bfloat16)
+        y.backward(g)
+        outs.append((y, xi.grad, bn.weight.grad, bn.bias.grad, bn.running_mean,
+                     bn.running_var))
+    assert all(torch.equal(a, b) for a, b in zip(outs[0], outs[1]))
+    (y, dx, dw, db, rm, rv), (py, pdx, pdw, pdb, prm, prv) = outs[0], outs[2]
+    assert bool(((y.float() - py.float()).abs() <= 2 ** -7 * py.float().abs() + 1e-5).all())
+    assert _rel(dx, pdx) <= 4e-3 and _rel(dw, pdw) <= 1e-3 and _rel(db, pdb) <= 1e-3
+    assert _rel(rm, prm) <= 1e-5 and _rel(rv, prv) <= 1e-5
+
+
+@pytest.mark.parametrize('what', ['nchw', 'channels'])
+def test_batch_norm_module_raises_on_an_activation_the_kernels_do_not_take(dev, what):
+    """A train-mode BatchNorm of a CUDA activation that the kernels do not
+    take (NCHW strides, or C not a multiple of 8) raises with the kernel's
+    reason: the card has no plain train-mode route to fall back on. Eval
+    mode still normalises it (the plain math, no kernel)."""
+    c = 64 if what == 'nchw' else 12
+    x = torch.randn(2, c, 8, 8, device=dev)
+    if what == 'channels':
+        x = x.contiguous(memory_format=torch.channels_last)
+    bn = BatchNorm(c).to(dev)
+    with pytest.raises(ValueError, match='channels-last' if what == 'nchw' else 'multiple of 8'):
+        bn(x, True)
+    before = launch_counts()
+    assert torch.isfinite(bn(x, False)).all()
+    assert launch_counts() == before
+
+
+def test_synced_batch_norm_on_two_ranks_matches_the_plain_path(dev, tmp_path):
+    """Every synced row rule on two gloo ranks (tests/torch_port_bn_ranks.py,
+    both on this card, then both on the CPU): a mean over the ranks of each
+    rank's moments, with every row and with each rank's first 2 samples,
+    and sums of the global batch's first k rows (k = 6 spans both ranks, k
+    = 2 leaves rank 1 none). The card's ranks run the fused kernels, an
+    all-reduce between each pair; their outputs, gradients and running
+    averages match the CPU ranks' (the kernels' plain versions) within f32
+    noise."""
+    repo = Path(__file__).resolve().parents[1]
+    got = {}
+    for device in ('cuda:0', 'cpu'):
+        with socket.socket() as sock:
+            sock.bind(('127.0.0.1', 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=str(repo), WORLD_SIZE='2', MASTER_ADDR='127.0.0.1',
+                   MASTER_PORT=str(port))
+        procs = [subprocess.Popen([sys.executable, str(repo / 'tests' / 'torch_port_bn_ranks.py'),
+                                   device, str(tmp_path / f'{device[:3]}{r}.pt')],
+                                  env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT)
+                 for r in range(2)]
+        logs = [proc.communicate(timeout=300)[0].decode(errors='replace') for proc in procs]
+        assert all(proc.returncode == 0 for proc in procs), logs
+        got[device] = [torch.load(tmp_path / f'{device[:3]}{r}.pt') for r in range(2)]
+    for card, cpu in zip(got['cuda:0'], got['cpu']):
+        n = len(card['cases'])
+        assert card['launches'] == bn_launches(n), card
+        for case, want in cpu['cases'].items():
+            for name, t in want.items():
+                assert _rel(card['cases'][case][name], t) <= 1e-5, (case, name)
+
+
+@pytest.mark.parametrize('arch,kw,bns', [
+    ('hg', dict(num_stacks=8, fuse_block=True, fuse_upsample=True), STEM_BN + 8 * STACK_BN),
+    ('mspn', dict(num_stacks=2, out_res=16), 144)])
+def test_train_step_runs_every_batchnorm_through_the_kernels(dev, arch, kw, bns):
+    """The gate of the fused BatchNorm on both benchmark models: one train
+    step of the flagship hourglass (354 BatchNorms) and of the 2-stage MSPN
+    (144), at a small batch and size (the count does not depend on them),
+    launches each of the four kernels once a BatchNorm."""
+    ds = Synthetic(True, num_samples=2, inp_res=64, out_res=16, sigma=1)
+    raw, spec = ds.canvas_batch(range(2), canvas=64), make_spec(ds)
+    torch.manual_seed(0)
+    model = get_model(arch, device=dev, num_classes=16, **kw)
+    assert sum(isinstance(m, BatchNorm) for m in model.modules()) == bns
+    state = init_state(model, make_optimizer(2.5e-4, [], 0.1, 10))
+    step = make_train_step(spec, device_pipeline=True)
+    tracing.reset()
+    _, m = step(state, raw, 0)
+    assert np.isfinite(float(m['loss']))
+    counts = launch_counts()
+    assert {n: counts[n] for n in bn_launches(0)} == bn_launches(bns)

@@ -169,13 +169,32 @@ def _op_cases():
         'maxpool2x2_bwd_first': (t(2, 8, 8, 16), t(2, 4, 4, 16)),
         'render_gaussian': (mu, torch.ones(2, JOINTS), 16, 12, 1.0),
         'decode_peaks': (t(2, 8, 8, JOINTS),),
+        **_batch_norm_cases(t),
+    }
+
+
+def _batch_norm_cases(t):
+    """The fused train-mode BatchNorm's four ops on channels-last
+    [2, 16, 4, 4] activations: the sampled statistics, the apply with the
+    ReLU, a bf16 output and the running buffers moved, and the backward's
+    two ops on a bf16 output gradient."""
+    cl = torch.channels_last
+    x = t(2, 16, 4, 4).contiguous(memory_format=cl)
+    g = t(2, 16, 4, 4, dt=torch.bfloat16).contiguous(memory_format=cl)
+    w, b, m = t(16).abs() + 0.5, t(16), t(2, 16).abs()
+    return {
+        'batch_norm_train_stats': (x, 1, 16.0),
+        'batch_norm_train_fwd': (x, m, w, b, t(16), t(16).abs(), 1.0, 0.9, 1e-5, True,
+                                 torch.bfloat16),
+        'batch_norm_train_bwd_reduce': (g, x, m, w, b, 1.0, 1e-5, True),
+        'batch_norm_train_bwd': (g, x, m, w, b, t(2, 16), 1, 16.0, 1.0, 1e-5, True),
     }
 
 
 @pytest.mark.parametrize('name', sorted(w.__name__ for w in KERNEL_WRAPPERS))
 def test_kernel_op_schema_and_fake(name):
-    """Each of the nine kernels is an `hpe::` op whose schema, fake and CPU
-    kernel (the plain version) agree."""
+    """Each kernel is an `hpe::` op whose schema, fake and CPU kernel (the
+    plain version) agree."""
     torch.library.opcheck(getattr(torch.ops.hpe, name).default, _op_cases()[name])
 
 

@@ -1,5 +1,7 @@
 """Port training ops vs the JAX package, f32 on the CPU with seeded numpy
-inputs: train-mode BatchNorm, the loss and PCK, and the plain versions
+inputs: train-mode BatchNorm (the module, and the fused BatchNorm's
+autograd Function over its ops' plain versions, with the ReLU and the
+cast the call sites apply), the loss and PCK, and the plain versions
 (and autograd Functions) of the training kernels: the Gaussian render,
 the 2x2 max-pool forward and backward (both tie modes: the Pallas
 kernel's split, and the model's first maximum against `jax.grad` of
@@ -27,8 +29,9 @@ from hourglass_pose_estimation_torch.loss import heatmap_mse_loss
 from hourglass_pose_estimation_torch.models.norm import BatchNorm
 from hourglass_pose_estimation_torch.ops.heatmap import render_gaussian_targets
 from hourglass_pose_estimation_torch.ops.hopper import (
-    BottleneckParams, bottleneck_backward_reference, fused_bottleneck,
-    maxpool2x2, maxpool2x2_bwd_first_reference, upsample2x_add)
+    BottleneckParams, StatRows, batch_moments_reference, batch_norm_reference,
+    batch_norm_train, batch_stats_reference, bottleneck_backward_reference, fused_bottleneck,
+    maxpool2x2, maxpool2x2_bwd_first_reference, running_update_reference, upsample2x_add)
 from hourglass_pose_estimation_torch.models.modules import max_pool
 from hourglass_pose_estimation_torch.utils import evaluation as teval
 
@@ -83,6 +86,210 @@ def test_batchnorm_train_matches_flax(rng, fast, k):
         {'params': params, 'batch_stats': mut['batch_stats']}, jnp.asarray(x))
     np.testing.assert_allclose(ev.detach().numpy(), np.asarray(jev),
                                rtol=1e-5, atol=1e-5)
+
+
+def _bn_case(rng, B=4, C=8, H=5, W=6):
+    x = (rng.normal(size=(B, H, W, C)) * 2 + 3).astype(np.float32)
+    params = {'scale': rng.uniform(0.5, 1.5, C).astype(np.float32),
+              'bias': rng.normal(size=C).astype(np.float32)}
+    stats = {'mean': rng.normal(size=C).astype(np.float32),
+             'var': rng.uniform(0.5, 2, C).astype(np.float32)}
+    return x, params, stats
+
+
+# what the call sites apply after a train-mode BatchNorm, in JAX: the ReLU
+# (or not) and the cast to the next op's dtype
+_JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+@pytest.mark.parametrize('relu,out_dtype,k,update', [
+    (True, torch.float32, 0, True), (False, torch.float32, 0, True),
+    (True, torch.bfloat16, 0, True), (False, torch.bfloat16, 0, True),
+    (True, torch.float32, 2, True), (False, torch.float32, 3, True),
+    (True, torch.bfloat16, 2, True), (False, torch.bfloat16, 1, True),
+    (True, torch.float32, 0, False), (True, torch.bfloat16, 2, False)])
+def test_batchnorm_function_matches_flax(rng, relu, out_dtype, k, update):
+    """The fused BatchNorm's autograd Function, on the CPU (its ops' plain
+    versions), against the JAX BatchNorm followed by the ReLU and the cast:
+    the output, dx, dweight, dbias and the running averages (moved only
+    when `update`); the module's train-mode forward, which runs the
+    Function, bit for bit; and autograd over the plain versions of the
+    forward on the same inputs: the same output bits, running averages,
+    dweight and dbias, and dx within an ulp (autograd adds two rounded
+    contributions to dx, the Function's backward one f32 sum)."""
+    x, params, stats = _bn_case(rng)
+    B, H, W, C = x.shape
+    jbn = JaxBN(use_running_average=False, stat_samples=k, dtype=jnp.float32)
+
+    def jax_fn(xj, scale, bias):
+        y, mut = jbn.apply({'params': {'scale': scale, 'bias': bias}, 'batch_stats': stats},
+                           xj, mutable=['batch_stats'])
+        return (jax.nn.relu(y) if relu else y).astype(_JNP[out_dtype]), mut
+
+    ref, vjp, mut = jax.vjp(jax_fn, jnp.asarray(x), jnp.asarray(params['scale']),
+                            jnp.asarray(params['bias']), has_aux=True)
+    g = rng.normal(size=ref.shape).astype(np.float32)
+    g_t = _t(g).to(out_dtype)
+    jdx, jdw, jdb = vjp(jnp.asarray(g_t.float().numpy()).astype(_JNP[out_dtype]))
+
+    def run(how):
+        bn = BatchNorm(C, stat_samples=k)
+        bn.update_stats = update
+        with torch.no_grad():
+            bn.weight.copy_(_t(params['scale']))
+            bn.bias.copy_(_t(params['bias']))
+            bn.running_mean.copy_(_t(stats['mean']))
+            bn.running_var.copy_(_t(stats['var']))
+        xt = _t(x).permute(0, 3, 1, 2).requires_grad_()
+        n = k if 0 < k < B else B
+        running = (bn.running_mean, bn.running_var) if update else None
+        if how == 'function':
+            y, _, _ = batch_norm_train(xt, bn.weight, bn.bias, StatRows(n, n * H * W, 1),
+                                       running, bn.momentum, bn.eps, relu, out_dtype)
+        elif how == 'module':
+            y = bn(xt, train=True, relu=relu, out_dtype=out_dtype)
+        else:
+            mean, var = batch_stats_reference(batch_moments_reference(xt, n, n * H * W), 1.0)
+            if update:
+                running_update_reference(*running, mean, var, bn.momentum)
+            y = batch_norm_reference(xt, mean, var, bn.weight, bn.bias, bn.eps, relu, out_dtype)
+        y.backward(g_t.permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1), xt.grad.permute(0, 2, 3, 1), bn
+
+    got, dx, bn = run('function')
+    assert got.dtype == out_dtype
+    # f32 reductions in another order: a few ulps of the statistics, so a
+    # bf16 output may land one bf16 step away
+    tol = dict(rtol=1e-5, atol=1e-5) if out_dtype == torch.float32 else dict(rtol=2 ** -8,
+                                                                             atol=2 ** -8)
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(ref, np.float32), **tol)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(bn.weight.grad.numpy(), np.asarray(jdw), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(bn.bias.grad.numpy(), np.asarray(jdb), rtol=1e-5, atol=1e-5)
+    want = mut['batch_stats'] if update else stats
+    np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(want['mean']),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(want['var']),
+                               rtol=1e-5, atol=1e-6)
+
+    mod, mdx, mbn = run('module')
+    assert torch.equal(got, mod) and torch.equal(dx, mdx)
+    for name, t in mbn.state_dict().items():
+        assert torch.equal(bn.state_dict()[name], t), name
+    assert torch.equal(bn.weight.grad, mbn.weight.grad)
+    assert torch.equal(bn.bias.grad, mbn.bias.grad)
+
+    plain, pdx, pbn = run('plain')
+    assert torch.equal(got, plain)
+    assert torch.equal(bn.running_mean, pbn.running_mean)
+    assert torch.equal(bn.running_var, pbn.running_var)
+    assert torch.equal(bn.weight.grad, pbn.weight.grad)
+    assert torch.equal(bn.bias.grad, pbn.bias.grad)
+    np.testing.assert_allclose(dx.numpy(), pdx.numpy(), rtol=2 ** -23, atol=2 ** -22)
+
+
+@pytest.mark.parametrize('relu,out_dtype', [(True, torch.bfloat16), (False, torch.float32)])
+def test_batchnorm_module_relu_and_cast_match_the_call_sites(rng, relu, out_dtype):
+    """`relu` and `out_dtype` are what the call sites applied after the
+    module before: the same bits in train and eval mode; the train-mode
+    forward of a CPU tensor runs the fused BatchNorm's autograd Function
+    (its ops' plain versions), as a CUDA one runs its kernels."""
+    x, params, stats = _bn_case(rng, C=16)
+    xt = _t(x).permute(0, 3, 1, 2).requires_grad_()
+    bn = BatchNorm(16)
+    with torch.no_grad():
+        bn.weight.copy_(_t(params['scale']))
+        bn.bias.copy_(_t(params['bias']))
+    for train in (True, False):
+        bn.update_stats = False
+        got = bn(xt, train, relu=relu, out_dtype=out_dtype)
+        y = bn(xt, train)
+        want = (torch.relu(y) if relu else y).to(out_dtype)
+        assert y.dtype == torch.float32 and torch.equal(got, want)
+        assert (type(got.grad_fn).__name__ == '_TrainBatchNormBackward') == train
+
+
+@pytest.mark.parametrize('name', ['batch_norm_train_stats', 'batch_norm_train_fwd',
+                                  'batch_norm_train_bwd_reduce', 'batch_norm_train_bwd'])
+def test_batchnorm_op_fakes_give_the_kernels_shapes(name):
+    """Each fused BatchNorm op's fake, on meta tensors: the output shapes,
+    dtypes and (for activations) channels-last strides of the CPU kernel,
+    and the kernel's refusals (an NCHW-strided activation)."""
+    cl = torch.channels_last
+    x = torch.randn(2, 16, 3, 4).contiguous(memory_format=cl)
+    g = torch.randn(2, 16, 3, 4).to(torch.bfloat16).contiguous(memory_format=cl)
+    w, b, m = torch.rand(16) + 0.5, torch.randn(16), torch.rand(2, 16)
+    args = {'batch_norm_train_stats': (x, 1, 12.0),
+            'batch_norm_train_fwd': (x, m, w, b, torch.zeros(16), torch.ones(16), 1.0, 0.9,
+                                     1e-5, True, torch.bfloat16),
+            'batch_norm_train_bwd_reduce': (g, x, m, w, b, 1.0, 1e-5, True),
+            'batch_norm_train_bwd': (g, x, m, w, b, torch.randn(2, 16), 1, 12.0, 1.0, 1e-5,
+                                     True)}[name]
+    op = getattr(torch.ops.hpe, name)
+    cpu = op(*args)
+    meta = op(*(a.to('meta') if isinstance(a, torch.Tensor) else a for a in args))
+    for c, f in zip(*(o if isinstance(o, tuple) else (o,) for o in (cpu, meta))):
+        assert f.device.type == 'meta'
+        assert (f.shape, f.dtype, f.stride()) == (c.shape, c.dtype, c.stride())
+    with pytest.raises(ValueError, match='channels-last'):
+        op(*(a.contiguous().to('meta') if isinstance(a, torch.Tensor) and a.dim() == 4
+             else a.to('meta') if isinstance(a, torch.Tensor) else a for a in args))
+
+
+@pytest.mark.parametrize('relu,k', [(True, 0), (False, 0), (True, 2), (False, 3)])
+def test_batchnorm_function_rounds_a_bf16_dx_as_jax(rng, relu, k):
+    """A bf16 activation's dx from the Function's plain versions rounds its
+    two parts (the normalisation's and the statistics') to bf16 before the
+    sum, as autograd over the plain forward and JAX's transpose of its two
+    casts of x do: bit for bit against autograd, and on at least 99% of the
+    elements against JAX (where the statistics' f32 sums round alike; one
+    rounding of the f32 sum differs from JAX on ~15%)."""
+    x, params, stats = _bn_case(rng)
+    B, H, W, C = x.shape
+    xb = _t(x).to(torch.bfloat16)
+    g = _t(rng.normal(size=x.shape).astype(np.float32)).to(torch.bfloat16)
+    jbn = JaxBN(use_running_average=False, stat_samples=k, dtype=jnp.float32)
+
+    def jax_fn(xj):
+        y, _ = jbn.apply({'params': {'scale': params['scale'], 'bias': params['bias']},
+                          'batch_stats': stats}, xj, mutable=['batch_stats'])
+        return (jax.nn.relu(y) if relu else y).astype(jnp.bfloat16)
+
+    _, vjp = jax.vjp(jax_fn, jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16))
+    jdx = np.asarray(vjp(jnp.asarray(g.float().numpy()).astype(jnp.bfloat16))[0], np.float32)
+    w, b = _t(params['scale']), _t(params['bias'])
+    n = k if 0 < k < B else B
+    dxs = []
+    for fused in (True, False):
+        xt = xb.permute(0, 3, 1, 2).detach().requires_grad_()
+        if fused:
+            y, _, _ = batch_norm_train(xt, w, b, StatRows(n, n * H * W, 1), None, 0.9, 1e-5,
+                                       relu, torch.bfloat16)
+        else:
+            mean, var = batch_stats_reference(batch_moments_reference(xt, n, n * H * W), 1.0)
+            y = batch_norm_reference(xt, mean, var, w, b, 1e-5, relu, torch.bfloat16)
+        y.backward(g.permute(0, 3, 1, 2))
+        assert xt.grad.dtype == torch.bfloat16
+        dxs.append(xt.grad.permute(0, 2, 3, 1).float().numpy())
+    np.testing.assert_array_equal(dxs[0], dxs[1])
+    assert (dxs[0] == jdx).mean() >= 0.99
+
+
+@pytest.mark.parametrize('what', ['nchw', 'channels', 'f16', 'f64'])
+def test_batchnorm_module_refuses_what_the_kernels_do_not_take(what):
+    """The train-mode module on meta tensors (the ops' fakes make the CUDA
+    kernels' checks there) raises on an activation the kernels do not
+    take: NCHW strides, C not a multiple of 8, f16 or f64. The module has
+    no plain train-mode route to fall back on for a one-pass BatchNorm."""
+    c = 12 if what == 'channels' else 16
+    dtype = {'f16': torch.float16, 'f64': torch.float64}.get(what, torch.float32)
+    x = torch.empty(2, c, 4, 4, device='meta', dtype=dtype)
+    if what != 'nchw':
+        x = x.contiguous(memory_format=torch.channels_last)
+    bn = BatchNorm(c).to('meta')
+    match = {'nchw': 'channels-last', 'channels': 'multiple of 8'}.get(what, 'dtype')
+    with pytest.raises(ValueError, match=match):
+        bn(x, True)
 
 
 # --- loss and PCK
