@@ -9,15 +9,16 @@ counted; recomputation is not counted.
 from __future__ import annotations
 
 import functools
+import json
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 
 @functools.lru_cache(maxsize=None)
-def _conv_flops(arch_key: tuple) -> int:
+def _conv_flops(cfg_json: str) -> int:
     from hpe_bench.reference.train import build
-    cfg = dict(arch_key)
+    cfg = json.loads(cfg_json)
     with torch.device('meta'):
         model = build(cfg, 'meta')
         x = torch.empty((1, cfg['inp_res'], cfg['inp_res'], 3))
@@ -30,8 +31,7 @@ def _conv_flops(arch_key: tuple) -> int:
 
 def forward_flops(cfg: dict) -> int:
     """Convolution FLOPs of one image's forward under configuration `cfg`."""
-    return _conv_flops(tuple(sorted((k, v) for k, v in cfg.items()
-                                    if isinstance(v, (int, float, str, bool)))))
+    return _conv_flops(json.dumps(cfg, sort_keys=True))
 
 
 def train_flops(cfg: dict) -> int:

@@ -4,17 +4,20 @@ look for JAX in the process.
 
 A cell (`workloads/<cell>.json`) names its configuration
 (`configs/<config>.json`), its traffic mix (`traffic/<traffic>.json`), the
-entry that drives it (`entries/<entry>.py`) and the chips it needs. The
-metrics it reports are the ones `BENCHMARK.json` gives it: every end-to-end
-metric whose `workloads` lists it (or that has no such list), and with
-`--trace 1` every per-layer metric that lists it. A metric is read under
-the longest dotted prefix of its name that has a reader: per-layer metric
-`train.step_mfu.hg8` by `metrics/train.step_mfu.hg8.py` if there is one,
-else by `metrics/train.step_mfu.py`; end-to-end metric `train_img_s.hg8`
-is the entry's `train_img_s`. So one quantity can be split into metrics
-of their own (each with its cells, and its bound) by entries in
-`BENCHMARK.json` alone. Nothing here names a cell, a configuration or a
-metric: a later cell is new files and new entries.
+entry that drives it (`entries/<entry>.py`) and the chips it needs. A
+configuration file names its plain reference (`reference`, a module file
+whose `build(cfg, checkpointed)` makes the model) and carries the keyword
+arguments of the program's model (`model`); each port kernel's cost is
+`roofline/<op>.py`. The metrics a cell reports are the ones
+`BENCHMARK.json` gives it: every end-to-end metric whose `workloads` lists
+it (or that has no such list), and with `--trace 1` every per-layer metric
+that lists it. A per-layer metric is read under the longest dotted prefix
+of its name that has a reader: `train.step_mfu.hg8` by
+`metrics/train.step_mfu.hg8.py` if there is one, else by
+`metrics/train.step_mfu.py`; an end-to-end metric is the entry's value of
+the same name. Nothing here names a cell, a configuration, a kernel or a
+metric: a later cell or configuration is new files and entries appended to
+`BENCHMARK.json`'s lists.
 """
 
 from __future__ import annotations

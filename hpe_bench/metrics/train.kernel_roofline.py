@@ -1,6 +1,6 @@
 """train.kernel_roofline: over every launch of a port kernel in the profiled
 train steps, the sum of each launch's roofline bound (operations and bytes
-from its op's shapes, `hpe_bench/kernels.py`) over the sum of its device
+from its op's shapes, `hpe_bench/roofline/`) over the sum of its device
 time. Nothing when no port kernel ran."""
 
 from hpe_bench import kernels

@@ -13,21 +13,17 @@ DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32, 'float64': torch
 
 
 def build_model(cfg: dict, seed: int, device):
-    """The program's model of configuration `cfg` on `device`, its
-    parameters and BatchNorm statistics the seeded ones
-    (`synth.weights`). -> (model, the seeded tensors by name)."""
+    """The program's model of configuration `cfg` on `device`: `get_model`
+    of its `arch`, with its `num_stacks`, `num_classes`, `compute_dtype`
+    and the keyword arguments under its `model`; its parameters and
+    BatchNorm statistics the seeded ones (`synth.weights`). -> (model, the
+    seeded tensors by name)."""
     from hourglass_pose_estimation_torch.models import get_model
     dev = torch.device(device)
-    kw = dict(num_stacks=cfg['num_stacks'], num_classes=cfg['num_classes'],
-              dtype=DTYPES[cfg['compute_dtype']])
-    if cfg['arch'] == 'hg':
-        kw.update(num_blocks=cfg['num_blocks'], mobile=cfg['mobile'],
-                  skip_mode=cfg['skip_mode'], num_feats=cfg['num_feats'],
-                  fuse_block=cfg['fuse_block'], fuse_upsample=cfg['fuse_block'])
-    else:
-        kw.update(out_res=cfg['out_res'], up_channel_num=cfg['up_channel_num'])
     with dev:
-        model = get_model(cfg['arch'], device=dev, **kw)
+        model = get_model(cfg['arch'], device=dev, num_stacks=cfg['num_stacks'],
+                          num_classes=cfg['num_classes'], dtype=DTYPES[cfg['compute_dtype']],
+                          **cfg['model'])
     sd = model.state_dict()
     w = synth.weights({k: tuple(v.shape) for k, v in sd.items()}, seed, dev,
                       cfg.get('bn_scale_of'))

@@ -120,3 +120,9 @@ class HourglassNet(nn.Module):
             score, x = run(self._stack, i, x, train)
             outs.append(score.permute(0, 2, 3, 1))
         return torch.stack(outs, 0)
+
+
+def build(cfg: dict, checkpointed: bool = False) -> HourglassNet:
+    """The reference of an `hg` configuration file."""
+    return HourglassNet(cfg['num_stacks'], cfg['num_feats'], cfg['num_classes'],
+                        cfg.get('depth', 4), checkpointed=checkpointed)

@@ -150,3 +150,9 @@ class MSPN(nn.Module):
                 cross = c if c is not None else cross
             skip1, skip2, x = s1, s2, cross
         return torch.stack(outputs, 0)
+
+
+def build(cfg: dict, checkpointed: bool = False) -> MSPN:
+    """The reference of an `mspn` configuration file."""
+    return MSPN(cfg['num_stacks'], cfg['num_classes'], cfg['out_res'], cfg['up_channel_num'],
+                checkpointed=checkpointed)

@@ -34,25 +34,19 @@ import statistics
 
 import torch
 
+from hpe_bench import harness
 from hpe_bench.reference import pipeline
-from hpe_bench.reference.hourglass import HourglassNet
 from hpe_bench.reference.layers import no_tf32, set_precision
-from hpe_bench.reference.mspn import MSPN
 
 MOVED_SHARE = 1e-3
 
 
 def build(cfg: dict, device, checkpointed: bool = False):
-    """The reference model of a configuration, on `device`, f32."""
-    if cfg['arch'] == 'hg':
-        m = HourglassNet(cfg['num_stacks'], cfg['num_feats'], cfg['num_classes'],
-                         cfg.get('depth', 4), checkpointed=checkpointed)
-    elif cfg['arch'] == 'mspn':
-        m = MSPN(cfg['num_stacks'], cfg['num_classes'], cfg['out_res'],
-                 cfg['up_channel_num'], checkpointed=checkpointed)
-    else:
-        raise ValueError(f"no reference for arch {cfg['arch']!r}")
-    return m.to(device)
+    """The reference model of a configuration, on `device`, f32: the
+    `build(cfg, checkpointed)` of the module file its `reference` names."""
+    path = harness.ROOT / cfg['reference']
+    module = harness.load_module(path, f'hpe_bench_reference_{path.stem}')
+    return module.build(cfg, checkpointed=checkpointed).to(device)
 
 
 def first_steps(cfg: dict, weights: dict, raws: list, seed: int, spec: dict, lr: float,

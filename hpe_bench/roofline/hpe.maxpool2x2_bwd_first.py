@@ -1,0 +1,10 @@
+"""hpe::maxpool2x2_bwd_first: the pool's backward, a tie's gradient to
+its first maximum."""
+
+from hpe_bench import kernels
+
+SYMBOL = 'maxpool2x2_bwd_kernel'
+
+
+def cost(shapes, ctx):
+    return kernels.maxpool2x2_bwd(shapes[0], shapes[1])

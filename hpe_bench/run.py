@@ -54,8 +54,7 @@ def execute(run: Run, spec: dict) -> dict:
         if run.trace:
             value = harness.metric_reader(m['name']).read(out['ctx'], out['trace'])
         else:
-            key = harness.longest_prefix(m['name'], lambda p: p in out['e2e'])
-            value = out['setup_s'] if m['name'] == 'setup_s' else out['e2e'].get(key)
+            value = out['setup_s'] if m['name'] == 'setup_s' else out['e2e'].get(m['name'])
         if value is not None:
             metrics[m['name']] = {'value': value, 'unit': m['unit']}
     result = {

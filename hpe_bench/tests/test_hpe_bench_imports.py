@@ -38,7 +38,7 @@ execute(Run(cell, 12345, 0.5, {trace}, "cpu", time.time()), harness.benchmark_sp
 '''
 
 
-@pytest.mark.parametrize('cell, trace', [('hg8-train-b64', 1), ('mspn2-train-b128', 0)])
+@pytest.mark.parametrize('cell, trace', [('hg8-train-b256', 1), ('mspn2-train-b384', 0)])
 def test_a_run_loads_no_jax(cell, trace):
     """A whole run of a cell (harness, program, reference, and with
     `--trace 1` the trace), at a tiny size on the CPU."""
@@ -75,7 +75,7 @@ for name in ("hg8-mpii", "mspn2-mpii"):
 def test_run_without_a_card_exits_nonzero_and_prints_no_result(tmp_path):
     """Here there is no CUDA card; in a directory holding only
     BENCHMARK.json and the benchmark's files (no program) too."""
-    cmd = [sys.executable, 'hpe_bench/run.py', '--workload', 'hg8-train-b64', '--seed',
+    cmd = [sys.executable, 'hpe_bench/run.py', '--workload', 'hg8-train-b256', '--seed',
            str(2 ** 31 + 3), '--seconds', '1', '--trace', '0']
     shutil.copy(ROOT / 'BENCHMARK.json', tmp_path / 'BENCHMARK.json')
     shutil.copytree(ROOT / 'hpe_bench', tmp_path / 'hpe_bench',

@@ -11,7 +11,7 @@ from hpe_bench.entries import train as train_entry
 from hpe_bench.reference import pipeline, train
 
 
-@pytest.mark.parametrize('name', ['hg8-train-b64', 'mspn2-train-b128'])
+@pytest.mark.parametrize('name', ['hg8-train-b256', 'mspn2-train-b384'])
 @pytest.mark.parametrize('mode', ['eval', 'train'])
 def test_reference_forward_matches_the_port(name, mode):
     """f32 in eval mode; f64 in train mode, where a BatchNorm over a tiny
@@ -35,7 +35,7 @@ def test_reference_forward_matches_the_port(name, mode):
 def test_reference_pipeline_is_the_programs_bit_for_bit():
     from hourglass_pose_estimation_torch.data.pipeline import PipelineSpec, augment_batch
     from hourglass_pose_estimation_torch.runner.train_state import _global_draws
-    cell = tiny_cell('hg8-train-b64')
+    cell = tiny_cell('hg8-train-b256')
     cfg, mix = cell['cfg'], cell['mix']
     spec = train_entry.spec_of(cfg, mix)
     pool = train_entry.make_pool(cfg, mix, 2 ** 40 + 3, 'cpu', 2, 6)
