@@ -7,7 +7,9 @@ package, with its default and validation. Keys that ask for what the port
 has not got yet (several devices, the host cv2 pipeline) parse here and
 are refused, with the ROADMAP item that brings them, by the entry point
 that would read them. One default differs: MODEL.fuse_block is the arch's
-own, on for hg (off in the JAX package) and off for mspn.
+own, on for hg (off in the JAX package) and off for mspn and hrnet. One
+key is the port's alone: MODEL.width, the width of arch=hrnet, a model the
+JAX package does not have.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ class DatasetConfig:
 
 
 # MODEL.fuse_block where the config leaves it unset, per arch
-_FUSE_BLOCK_DEFAULT = {'hg': True, 'mspn': False}
+_FUSE_BLOCK_DEFAULT = {'hg': True, 'mspn': False, 'hrnet': False}
 
 
 @dataclass(frozen=True)
@@ -77,6 +79,9 @@ class ModelConfig:
     # is explicit so reference MSPN checkpoints of any width import.
     # arch=hg rejects non-default values rather than ignore them.
     up_channel_num: int = 256
+    # HRNet's finest branch width (W48: 48); the port's own key (the JAX
+    # package has no HRNet), which only arch=hrnet reads
+    width: int = 48
     # arch=hg only: the Hopper kernels on the serving path. Eligible
     # bottlenecks (identity residual, >= 16 px, running-average BN, and
     # the kernel's scope: bf16 compute, 128 planes) run the fused

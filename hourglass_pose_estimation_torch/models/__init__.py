@@ -6,11 +6,13 @@ from hourglass_pose_estimation_torch.models.hourglass import (
     HourglassNet, HourglassStack, HourglassStem, hg)
 from hourglass_pose_estimation_torch.models.modules import (
     Bottleneck, Hourglass, ResidualChain)
+from hourglass_pose_estimation_torch.models.hrnet import HRNet, hrnet
 from hourglass_pose_estimation_torch.models.mspn import MSPN, mspn
 
 REGISTRY = {
     'hg': hg,
     'mspn': mspn,
+    'hrnet': hrnet,
 }
 
 
@@ -25,11 +27,12 @@ def model_from_config(mc, *, num_classes: int, out_res: int, device='cuda', **kw
     """The model a `ModelConfig` describes, with `num_classes` joints and
     `out_res` heatmaps (each caller reads its own config key for it).
     MODEL.fuse_block, resolved per arch by the config (on for hg, off for
-    mspn unless set), switches both of the hourglass's kernel routes; the
-    MSPN factory raises on it. kwargs (dtype, remat, bn_stat_samples) go
-    to the factory."""
+    mspn and hrnet unless set), switches both of the hourglass's kernel
+    routes; the MSPN and HRNet factories raise on it. MODEL.width is
+    HRNet's (the other factories ignore it). kwargs (dtype, remat,
+    bn_stat_samples) go to the factory."""
     return get_model(mc.arch, device=device, num_stacks=mc.num_stacks,
                      num_blocks=mc.num_blocks, num_classes=num_classes,
                      mobile=mc.mobile, skip_mode=mc.skip_mode, out_res=out_res,
                      up_channel_num=mc.up_channel_num, fuse_block=mc.fuse_block,
-                     fuse_upsample=mc.fuse_block, **kwargs)
+                     fuse_upsample=mc.fuse_block, width=mc.width, **kwargs)

@@ -53,8 +53,8 @@ a train step is `train.step` (step `state.step`) around, in order,
 `train.forward` (the model and the loss), `train.backward` (zero_grad and
 the backward), `train.optimizer` (the lr and RMSprop's step) and
 `train.metrics`; the overlapped step's staging is a `train.stage` of its
-own, of the step that will consume it, timed on the side stream. No span
-goes inside the models.
+own, of the step that will consume it, timed on the side stream. Inside
+the models the only spans are HRNet's exchange units (`train.exchange`).
 """
 
 from __future__ import annotations

@@ -819,7 +819,7 @@ def test_exported_flagship_program_keeps_the_kernels(dev, tmp_path):
 # (batch, H, W, C, x's dtype, y's dtype, relu, sampled k): the flagship's
 # shapes (64 x 128^2 x 64 at the stem to 64 x 4^2 x 256), MSPN's (128 x
 # 64^2 x 256 to 128 x 8^2 x 2048), a ragged M with C of 5 vectors of 8,
-# sampled rows, f32 in
+# sampled rows, f32 in, HRNet's branches (48 to 384 channels)
 BN_CASES = [
     (64, 128, 128, 64, torch.bfloat16, torch.bfloat16, True, 0),
     (64, 64, 64, 256, torch.bfloat16, torch.bfloat16, True, 0),
@@ -833,6 +833,11 @@ BN_CASES = [
     (3, 7, 5, 40, torch.bfloat16, torch.bfloat16, True, 2),
     (64, 16, 16, 256, torch.float32, torch.float32, True, 16),
     (16, 16, 16, 256, torch.float32, torch.bfloat16, False, 3),
+    # HRNet-W48's four branch widths, at their resolutions
+    (64, 64, 64, 48, torch.bfloat16, torch.bfloat16, True, 0),
+    (64, 32, 32, 96, torch.bfloat16, torch.bfloat16, False, 0),
+    (64, 16, 16, 192, torch.bfloat16, torch.bfloat16, True, 0),
+    (64, 8, 8, 384, torch.bfloat16, torch.bfloat16, False, 0),
 ]
 # the statistics' f32 sums in another order than the plain version's: the
 # mean within 1e-5 of |mean| + std, the variance within 1e-5 of E[x^2]
@@ -986,12 +991,14 @@ def test_synced_batch_norm_on_two_ranks_matches_the_plain_path(dev, tmp_path):
 
 @pytest.mark.parametrize('arch,kw,bns', [
     ('hg', dict(num_stacks=8, fuse_block=True, fuse_upsample=True), STEM_BN + 8 * STACK_BN),
-    ('mspn', dict(num_stacks=2, out_res=16), 144)])
+    ('mspn', dict(num_stacks=2, out_res=16), 144),
+    ('hrnet', dict(num_stacks=1), 292)])
 def test_train_step_runs_every_batchnorm_through_the_kernels(dev, arch, kw, bns):
-    """The gate of the fused BatchNorm on both benchmark models: one train
-    step of the flagship hourglass (354 BatchNorms) and of the 2-stage MSPN
-    (144), at a small batch and size (the count does not depend on them),
-    launches each of the four kernels once a BatchNorm."""
+    """The gate of the fused BatchNorm on the benchmark's models: one train
+    step of the flagship hourglass (354 BatchNorms), of the 2-stage MSPN
+    (144) and of HRNet-W48 (292), at a small batch and size (the count does
+    not depend on them), launches each of the four kernels once a
+    BatchNorm."""
     ds = Synthetic(True, num_samples=2, inp_res=64, out_res=16, sigma=1)
     raw, spec = ds.canvas_batch(range(2), canvas=64), make_spec(ds)
     torch.manual_seed(0)
@@ -1004,3 +1011,37 @@ def test_train_step_runs_every_batchnorm_through_the_kernels(dev, arch, kw, bns)
     assert np.isfinite(float(m['loss']))
     counts = launch_counts()
     assert {n: counts[n] for n in bn_launches(0)} == bn_launches(bns)
+
+
+# HRNet-W48's 2x exchange terms (j = i + 1 of each output i): stage 2's
+# module 1, stage 3's four modules 2 each, stage 4's two full modules 3
+# each and its last module 1; its exchanges, one a module
+HRNET_UPSAMPLES, HRNET_EXCHANGES = 1 + 4 * 2 + 2 * 3 + 1, 1 + 4 + 3
+
+
+def test_hrnet_exchanges_add_their_2x_terms_through_the_upsample_kernel(dev):
+    """One train step of HRNet-W48 (bf16, 256^2, batch 4): each 2x term of
+    an exchange launches the upsample kernel once forward and once back,
+    the loss is finite, and under the profiler each exchange is a
+    `train.exchange` span inside `train.forward` with a device time."""
+    from torch.profiler import ProfilerActivity, profile
+    ds = Synthetic(True, num_samples=4, inp_res=256, out_res=64, sigma=1)
+    raw, spec = ds.canvas_batch(range(4), canvas=256), make_spec(ds)
+    torch.manual_seed(0)
+    model = get_model('hrnet', device=dev, num_stacks=1, num_classes=16)
+    state = init_state(model, make_optimizer(2.5e-4, [], 0.1, 10))
+    step = make_train_step(spec, device_pipeline=True)
+    state, _ = step(state, raw, 0)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state, m = step(state, raw, 0)
+        torch.cuda.synchronize()
+    spans = tracing.spans()
+    counts = launch_counts()
+    tracing.reset()
+    assert np.isfinite(float(m['loss']))
+    assert counts['upsample2x_add'] == counts['upsample2x_add_bwd'] == HRNET_UPSAMPLES
+    forward = next(s for s in spans if s['name'] == 'train.forward')
+    ex = [s for s in spans if s['name'] == 'train.exchange']
+    assert len(ex) == HRNET_EXCHANGES
+    assert all(s['parent'] == forward['id'] and s['device_ms'] > 0 for s in ex), ex
